@@ -1,0 +1,176 @@
+"""Serving (counterpart of exemplar_vae_tpu/serve.py: make_serving_fns and
+ServingBundle).
+
+Three programs:
+
+* ``generate``           - unconditional samples: n ~ U(N), z ~ N(mu_n,
+                           sigma^2 I) with mu_n read from the encoded eval
+                           bank, decode;
+* ``reference_generate`` - exemplar-conditioned generation (the
+                           data-augmentation primitive);
+* ``score_nll``          - per-point IWAE NLL of one chunk (the reference
+                           eval protocol: full bank, no LOO).
+
+``ServingBundle.load`` reads a bundle that the JAX package exported
+(``bundle.json`` and ``arrays.npz``: weights and the eval bank), ignores its
+StableHLO ``.bin`` programs, builds the port's model from the manifest's
+config and serves the three programs on the card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.device import resolve_device
+from exemplar_vae_tpu_torch.models import create_model
+from exemplar_vae_tpu_torch.models.base import clamped_prior_log_var
+from exemplar_vae_tpu_torch.train import sampling
+from exemplar_vae_tpu_torch.train.evaluation import (as_tensor, make_iwae_fn,
+                                                     model_device)
+from exemplar_vae_tpu_torch.train.loss import Bank
+from exemplar_vae_tpu_torch.weights import params_from_keystr
+
+
+def make_serving_fns(model, cfg: Config, n_effective: int, n_gen: int,
+                     rounds: int, r: int):
+    """(generate, reference_generate, score_nll) for ``model`` at fixed
+    sizes. Noise is drawn from ``generator`` or injected (``idx``/``eps``),
+    in the draw order of the JAX programs."""
+
+    @torch.no_grad()
+    def generate(bank_means, *, generator=None, idx=None, eps=None):
+        if cfg.prior != "exemplar_prior":
+            return sampling.generate_x(model, cfg, n_gen, generator=generator,
+                                       idx=idx, eps=eps)
+        dev = model_device(model)
+        i = sampling.draw_index(idx, n_gen, n_effective, generator, dev)
+        mu = as_tensor(bank_means, dev)[i]
+        log_var = clamped_prior_log_var(model, cfg)
+        z = mu + torch.exp(0.5 * log_var) * sampling.draw_normal(
+            eps, mu.shape, generator, dev)
+        return model.generate_from_top(z)
+
+    def reference_generate(x_ref_raw, *, generator=None, eps=None):
+        return sampling.reference_based_generation_x(
+            model, cfg, x_ref_raw, generator=generator, eps=eps)
+
+    iwae = make_iwae_fn(model, cfg)
+
+    def score_nll(x_chunk_raw, bank_means, data_idx, valid, *,
+                  generator=None, eps=None):
+        dev = model_device(model)
+        bank = Bank(images=None, data_idx=as_tensor(data_idx, dev, torch.int32),
+                    valid=as_tensor(valid, dev, torch.bool),
+                    cache_means=as_tensor(bank_means, dev),
+                    n_effective=n_effective)
+        return iwae.chunk_nll(x_chunk_raw, bank, rounds, r,
+                              generator=generator, eps=eps)
+
+    def score_nll_no_bank(x_chunk_raw, *, generator=None, eps=None):
+        return iwae.chunk_nll(x_chunk_raw, None, rounds, r,
+                              generator=generator, eps=eps)
+
+    return generate, reference_generate, (
+        score_nll if cfg.prior == "exemplar_prior" else score_nll_no_bank)
+
+
+class ServingBundle:
+    """A JAX-exported serving bundle, served by the port.
+
+    >>> b = ServingBundle.load("serving/")          # on the card
+    >>> imgs = b.generate(generator=torch.Generator("cuda").manual_seed(0))
+    >>> mean, per_point = b.score_nll(test_images)
+    """
+
+    def __init__(self, manifest, cfg, model, bank, fns):
+        self.manifest = manifest
+        self.cfg = cfg
+        self.model = model
+        self.bank = bank
+        self._generate, self._reference_generate, self._score = fns
+
+    @classmethod
+    def load(cls, d: str, device="cuda") -> "ServingBundle":
+        dev = resolve_device(device)
+        with open(os.path.join(d, "bundle.json")) as f:
+            manifest = json.load(f)
+        cfg = Config.from_json(manifest["config"])
+        model = create_model(cfg, device=dev)
+        with np.load(os.path.join(d, "arrays.npz")) as data:
+            flat = {k[len("param:"):]: data[k] for k in data.files
+                    if k.startswith("param:")}
+            bank = None
+            if manifest["prior"] == "exemplar_prior":
+                bank = {"bank_means": torch.as_tensor(data["bank_means"],
+                                                      device=dev),
+                        "data_idx": torch.as_tensor(data["data_idx"],
+                                                    dtype=torch.int32,
+                                                    device=dev),
+                        "valid": torch.as_tensor(data["valid"],
+                                                 dtype=torch.bool,
+                                                 device=dev)}
+        model.load_state_dict(params_from_keystr(flat))
+        model.eval()
+        fns = make_serving_fns(model, cfg, int(manifest["n_effective"]),
+                               int(manifest["n_gen"]),
+                               int(manifest["rounds"]), int(manifest["r"]))
+        return cls(manifest, cfg, model, bank, fns)
+
+    def _prep_x(self, x):
+        """User input -> the bundle's x type. Continuous bundles take raw
+        uint8 (dequantized inside score/generate, as at eval); a float
+        array is rejected rather than silently cast. Binary/gray bundles
+        take floats in [0,1]; raw uint8 is scaled by 1/255."""
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if self.manifest.get("x_dtype", "float32") == "uint8":
+            if x.dtype != np.uint8:
+                raise ValueError(
+                    f"this bundle (input_type="
+                    f"{self.manifest['input_type']!r}) was exported for raw "
+                    f"uint8 images; got dtype {x.dtype} - pass the undecoded "
+                    f"uint8 array")
+            return x
+        if x.dtype == np.uint8:
+            return x.astype(np.float32) / 255.0
+        return x.astype(np.float32)
+
+    def generate(self, *, generator=None, idx=None, eps=None):
+        bm = self.bank["bank_means"] if self.bank is not None else None
+        return self._generate(bm, generator=generator, idx=idx, eps=eps)
+
+    def reference_generate(self, x_ref, *, generator=None, eps=None):
+        if x_ref.shape[0] != self.manifest["ref_batch"]:
+            raise ValueError(f"this bundle serves batches of "
+                             f"{self.manifest['ref_batch']}, got "
+                             f"{x_ref.shape[0]}")
+        return self._reference_generate(self._prep_x(x_ref),
+                                        generator=generator, eps=eps)
+
+    def score_nll(self, x, *, generator=None, eps=None):
+        """Mean + per-point IWAE NLL; loops fixed-size chunks, padding the
+        tail (padded rows are scored and discarded). ``eps``: one noise
+        tensor per chunk, (rounds, chunk*r, Dz)."""
+        chunk = self.manifest["score_chunk"]
+        x = self._prep_x(x)
+        outs = []
+        for i, start in enumerate(range(0, x.shape[0], chunk)):
+            xc = x[start:start + chunk]
+            true = xc.shape[0]
+            if true < chunk:
+                xc = np.concatenate(
+                    [xc, np.zeros((chunk - true,) + xc.shape[1:], xc.dtype)], 0)
+            e = None if eps is None else eps[i]
+            if self.bank is not None:
+                o = self._score(xc, self.bank["bank_means"],
+                                self.bank["data_idx"], self.bank["valid"],
+                                generator=generator, eps=e)
+            else:
+                o = self._score(xc, generator=generator, eps=e)
+            outs.append(o.cpu().numpy()[:true])
+        per = np.concatenate(outs)
+        return float(per.mean()), per

@@ -1,0 +1,90 @@
+"""Generation (counterpart of exemplar_vae_tpu/train/sampling.py: generate_x,
+reference_based_generation_x).
+
+Generative process of the exemplar prior: n ~ Uniform(N);
+z ~ N(mu_phi(x_n), sigma^2 I); x_hat = decode(z). Exemplar-conditioned
+generation uses a chosen exemplar instead of a sampled one.
+
+Draws come in the JAX key-split order: the exemplar (or pseudo-input) index
+first, then the latent noise. Either can be injected (``idx``, ``eps``) so
+that tests replay JAX's draws; otherwise they come from ``generator``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.models.base import clamped_prior_log_var
+from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
+from exemplar_vae_tpu_torch.train.evaluation import as_tensor, model_device
+
+
+def _prep(x, cfg: Config):
+    return preprocess_batch(x, input_type=cfg.input_type,
+                            dynamic_binarization=cfg.dynamic_binarization,
+                            train=False)
+
+
+def draw_index(idx, n, hi, generator, device):
+    """``n`` indices in [0, hi): the injected ``idx`` or a draw."""
+    if idx is not None:
+        return as_tensor(idx, device, torch.int64)
+    return torch.randint(0, hi, (n,), generator=generator, device=device)
+
+
+def draw_normal(eps, shape, generator, device):
+    """Standard-normal noise of ``shape``: the injected ``eps`` or a draw."""
+    if eps is not None:
+        eps = as_tensor(eps, device, torch.float32)
+        if tuple(eps.shape) != tuple(shape):
+            raise ValueError(f"eps must be {tuple(shape)}, got "
+                             f"{tuple(eps.shape)}")
+        return eps
+    return torch.randn(shape, generator=generator, device=device)
+
+
+@torch.no_grad()
+def generate_x(model, cfg: Config, n: int, bank_images_raw=None,
+               n_valid: int = None, *, generator=None, idx=None, eps=None):
+    """Unconditional samples: (n, H, W, C) decoder means. ``n_valid``
+    bounds exemplar sampling to the real (non-padding) bank rows."""
+    dev = model_device(model)
+    if cfg.prior == "standard":
+        z = draw_normal(eps, (n, _top_dim(cfg)), generator, dev)
+    elif cfg.prior == "vampprior":
+        u = model.get_pseudo_inputs()
+        i = draw_index(idx, n, u.shape[0], generator, dev)
+        m, lv = model.encode_top(u[i])
+        z = m + torch.exp(0.5 * lv) * draw_normal(eps, m.shape, generator, dev)
+    else:
+        hi = n_valid if n_valid is not None else bank_images_raw.shape[0]
+        i = draw_index(idx, n, hi, generator, dev)
+        ex = _prep(as_tensor(bank_images_raw, dev)[i], cfg)
+        mu = model.encode_top_mean(ex)
+        log_var = clamped_prior_log_var(model, cfg)
+        z = mu + torch.exp(0.5 * log_var) * draw_normal(eps, mu.shape,
+                                                        generator, dev)
+    return model.generate_from_top(z)
+
+
+@torch.no_grad()
+def reference_based_generation_x(model, cfg: Config, x_ref_raw,
+                                 n_per_ref: int = 1, *, generator=None,
+                                 eps=None):
+    """Samples conditioned on given exemplars x_ref. Returns
+    (B * n_per_ref, H, W, C)."""
+    dev = model_device(model)
+    mu = model.encode_top_mean(_prep(as_tensor(x_ref_raw, dev), cfg))
+    if n_per_ref > 1:
+        mu = torch.repeat_interleave(mu, n_per_ref, dim=0)
+    log_var = (clamped_prior_log_var(model, cfg)
+               if cfg.prior == "exemplar_prior"
+               else torch.zeros((), device=dev))
+    z = mu + torch.exp(0.5 * log_var) * draw_normal(eps, mu.shape, generator,
+                                                    dev)
+    return model.generate_from_top(z)
+
+
+def _top_dim(cfg: Config) -> int:
+    return cfg.z1_size if cfg.model_name.lower() == "vae" else cfg.z2_size
