@@ -11,7 +11,8 @@ Phases; any failure exits non-zero before the result lines:
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16 inputs, at the serving shape (B = N = 50 000, D = 40, no LOO) and
    the train shape (B = 100, N = 50 000, LOO), with ~1% invalid exemplars
-   and an N that no tile divides; kernel, plain and bound times;
+   and an N that no tile divides; kernel, plain, library-yardstick and
+   bound times (the library yardstick is freed before phase 4);
 4. the serving path of BASELINE Config 1 at full width: a seeded VAE
    (784-300-300-40, fp32), a 50 000-image synthetic binarized bank encoded
    by make_eval_bank_fn, 3 score_nll requests of 100 points at S = 5000,
@@ -30,14 +31,23 @@ import time
 import numpy as np
 import torch
 
-# fp32: both sides sum the same fp32 products in another order;
-# bf16: the same, from bf16-rounded inputs (stated looser for margin).
+# fp32: the kernel's three TF32 products carry fp32 accuracy (the dropped
+# lo.lo is ~2^-22 relative) and both sides sum in another order; bf16: exact
+# products of bf16-rounded inputs, summed in another order (stated looser for
+# margin).
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 1e-4)}     # (atol, rtol)
 NLL_RTOL = 1e-5
-# H100 SXM data sheet: HBM rate and dense peak rates by input type
+# H100 SXM data sheet: HBM rate and dense peak rates (fp32 SIMT pipes, TF32
+# and bf16 tensor cores); exponentials: 16 per clock per SM on the SFU
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+FP32_OPS, TF32_OPS, BF16_OPS = 67e12, 495e12, 989e12
+SFU_EXP_PER_CLOCK = 16
 N_BANK, D = 50_000, 40
+# pairwise_lse times of the SIMT fp32 kernel that the tensor-core design
+# replaced (PERF.md, same script, H100 80GB HBM3 at 700 W), printed beside
+# this run's for reference only
+SIMT_MS = {("serving", "float32"): 10.3132, ("serving", "bfloat16"): 10.3422,
+          ("train", "float32"): 0.0761, ("train", "bfloat16"): 0.0829}
 N_REQUESTS, T, N_GEN, N_REF = 3, 100, 100, 16
 
 
@@ -90,29 +100,54 @@ def profile_ms(fn, top=8):
                         for e in kernels[:top]]
 
 
-def lse_bound_ms(b, n, d, dtype, loo):
-    """Least time for one pairwise-LSE call: its bytes (each input read and
-    the output written once) over HBM, or its 2*B*N*D cross-term flops over
-    the peak for the input type, whichever is larger."""
+def max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def lse_bound_ms(b, n, d, dtype, loo, sm_count, sm_hz):
+    """Least time for one pairwise-LSE call, whatever implements it: the
+    largest of its bytes (each input read and the output written once) over
+    HBM, its 2*B*N*D cross-term flops by the fastest route that keeps the
+    input type's accuracy (fp32: the SIMT pipes, or three TF32 products of
+    an error-compensated split; bf16: one bf16 product) and its B*N
+    exponentials on the SFU. Returns (ms, "bytes" or "operations", term)."""
     es = 4 if dtype == "float32" else 2
     nbytes = (b * d + n * d) * es + n * 4 + n + 4 + b * 4 + (b * 4 if loo else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * b * n * d / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    flops = 2.0 * b * n * d
+    if dtype == "float32":
+        t_mma, mma = min((flops / FP32_OPS, "fp32 SIMT flops"),
+                         (3 * flops / TF32_OPS, "3xTF32 tensor flops"))
+    else:
+        t_mma, mma = flops / BF16_OPS, "bf16 tensor flops"
+    terms = {"HBM bytes": nbytes / HBM_BYTES_PER_S, mma: t_mma,
+             "SFU exponentials": b * n / (sm_count * SFU_EXP_PER_CLOCK * sm_hz)}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "HBM bytes" else "operations",
+            term)
 
 
-def lse_library(z, means, log_var, data_idx, ex_idx, valid):
-    """Yardstick only: the (B, N) logits materialised by torch.matmul, then
-    torch.logsumexp. The port never calls it."""
+def lse_library(z, means, log_var, data_idx, ex_idx, valid, in_dtype):
+    """Yardstick only: the (B, N) logits materialised by one torch.mm and
+    updated in place, then torch.logsumexp; bf16 rounds the inputs first and
+    computes in fp32, the function of the kernel's bf16 variant. The port
+    never calls it."""
+    z = z.to(in_dtype).float()
+    means = means.to(in_dtype).float()
     d = z.shape[1]
-    sq = torch.clamp_min((z * z).sum(-1, keepdim=True)
-                         + (means * means).sum(-1)[None] - 2.0 * torch.matmul(
-                             z, means.T), 0.0)
-    logits = -0.5 * (d * log_var + sq * torch.exp(-log_var))
+    x = torch.mm(z, means.T)
+    x.mul_(-2.0).add_((z * z).sum(-1, keepdim=True))
+    x.add_((means * means).sum(-1)[None]).clamp_min_(0.0)
+    x.mul_(-0.5 * torch.exp(-log_var)).add_(-0.5 * d * log_var)
     eff = torch.where(valid, ex_idx, torch.full_like(ex_idx, -2))
-    masked = (eff == -2)[None] | (data_idx[:, None] == eff[None])
-    return torch.logsumexp(logits.masked_fill(masked, -1e30), dim=-1)
+    if data_idx is None:      # rows carry NO_LOO_IDX = -1: a column mask
+        x.masked_fill_(((eff == -2) | (eff == -1))[None], -1e30)
+    else:
+        x.masked_fill_((eff == -2)[None] | (data_idx[:, None] == eff[None]),
+                       -1e30)
+    return torch.logsumexp(x, dim=-1)
 
 
 def kernel_phase(pl):
@@ -123,6 +158,10 @@ def kernel_phase(pl):
     valid = torch.rand(N_BANK, generator=g, device=dev) >= 0.01
     log_var = torch.tensor(-0.5, device=dev)
     check(N_BANK % 64 and N_BANK % 2048, "N must be ragged for every tile")
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_hz = max_sm_clock_hz()
+    log(f"[kernel] bound inputs: {sm_count} SMs, max SM clock "
+        f"{sm_hz / 1e6:.0f} MHz")
     results = {}
     for shape, b, loo in (("serving", 50_000, False), ("train", 100, True)):
         own = torch.randint(0, N_BANK, (b,), generator=g, device=dev)
@@ -148,25 +187,28 @@ def kernel_phase(pl):
             plain_ms = cuda_ms(
                 lambda: pl.pairwise_lse_plain(*args, in_dtype=dt),
                 max(reps // 10, 3), warmup=1)
-            library_ms = None
-            if shape == "train" and dt == torch.float32:
-                lib = lse_library(*args)
-                check(bool(((lib - want).abs()
-                            <= atol + rtol * want.abs()).all()),
-                      f"{shape}/{dt_name}: library yardstick disagrees")
-                library_ms = cuda_ms(lambda: lse_library(*args), 50)
-            bound_ms, bound_by = lse_bound_ms(b, N_BANK, D, dt_name, loo)
+            lib = lse_library(*args, in_dtype=dt)
+            check(bool(((lib - want).abs()
+                        <= atol + rtol * want.abs()).all()),
+                  f"{shape}/{dt_name}: library yardstick disagrees")
+            del lib
+            library_ms = cuda_ms(lambda: lse_library(*args, in_dtype=dt),
+                                 3 if b == 50_000 else 50, warmup=1)
+            torch.cuda.empty_cache()
+            bound_ms, bound_by, term = lse_bound_ms(b, N_BANK, D, dt_name, loo,
+                                                    sm_count, sm_hz)
             results[(shape, dt_name)] = dict(
                 shape=shape, dtype=dt_name, B=b, N=N_BANK, D=D, loo=loo,
                 max_abs_err=max_abs, max_rel_err=max_rel, atol=atol,
                 rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, bound_term=term)
             log(f"[kernel] pairwise_lse {shape} B={b} N={N_BANK} D={D} "
                 f"loo={loo} {dt_name}: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (atol {atol}, rtol {rtol}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={library_ms} bound_ms={bound_ms:.4f} "
-                f"({bound_by})")
+                f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({bound_by}: {term}; {100 * bound_ms / ms:.1f}% of it) "
+                f"SIMT kernel {SIMT_MS[(shape, dt_name)]} ms (recorded)")
     return results
 
 
@@ -326,7 +368,7 @@ def main():
         "launches": launches, "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],
-        "library_ms": None,
+        "library_ms": main_v["library_ms"],
         "variants": list(kern.values()),
     }
     log(f"[done] {time.perf_counter() - t0:.1f} s after the build started")

@@ -14,7 +14,7 @@ NEG_INF. The result has no log-denominator.
 ``pairwise_lse`` launches csrc/pairwise_lse.cu for CUDA tensors and runs
 ``pairwise_lse_plain`` for CPU tensors; there is no fallback between them.
 ``pairwise_lse.launches`` counts kernel launches (one per call, which runs
-the partial pass and the merge pass). The kernel is forward-only: a call
+the prep, partial and merge passes). The kernel is forward-only: a call
 that needs a gradient raises on CUDA (the backward belongs to the training
 slice).
 """
@@ -83,7 +83,7 @@ def build(verbose: bool = False) -> float:
     lib = ctypes.CDLL(str(so))
     lib.pairwise_lse_max_d.argtypes = []
     lib.pairwise_lse_max_d.restype = ctypes.c_int
-    lib.pairwise_lse_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.pairwise_lse_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.pairwise_lse_scratch_floats.restype = ctypes.c_longlong
     lib.pairwise_lse_forward.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -197,11 +197,12 @@ def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
         return out
     lv = log_var.reshape(1).contiguous()
     sm = torch.cuda.get_device_properties(z.device).multi_processor_count
-    scratch = torch.empty((_lib.pairwise_lse_scratch_floats(b, n, sm),),
+    code = _DTYPE_CODE[in_dtype]
+    scratch = torch.empty((_lib.pairwise_lse_scratch_floats(code, b, n, d, sm),),
                           dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         err = _lib.pairwise_lse_forward(
-            _DTYPE_CODE[in_dtype], zc.data_ptr(), mc.data_ptr(),
+            code, zc.data_ptr(), mc.data_ptr(),
             lv.data_ptr(),
             data_idx.data_ptr() if data_idx is not None else None,
             ex_idx.data_ptr(), valid.data_ptr(), b, n, d, sm,

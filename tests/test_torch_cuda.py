@@ -7,10 +7,12 @@ so it also runs where JAX is absent (tests/conftest.py imports JAX, hence
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerance: rtol 1e-5 / atol 1e-4. Both sides sum the same fp32 products
-in another order (bf16 inputs are rounded identically on both sides), and
-|z|^2 + |mu|^2 - 2 z.mu cancels: its error scales with the norms (~80 at
-D = 40, a few ulps of 7.6e-6), not with an LSE that may lie near 0.
+Tolerance: rtol 1e-5 / atol 1e-4. The kernel's three TF32 products keep
+fp32 accuracy (the dropped lo.lo term is ~2^-22 relative) and both sides sum
+in another order (bf16 inputs are rounded identically on both sides, and
+their products are exact); |z|^2 + |mu|^2 - 2 z.mu cancels, so the error
+scales with the norms (~80 at D = 40, a few ulps of 7.6e-6), not with an
+LSE that may lie near 0.
 """
 
 import numpy as np
@@ -30,12 +32,17 @@ def dev():
     return resolve_device("cuda")
 
 
-def _inputs(dev, b, n, d, loo, seed=0):
+def _inputs(dev, b, n, d, loo, seed=0, scale=1.0, minus_one=()):
+    """``scale`` multiplies z and means (norms ~scale*sqrt(d)); the exemplar
+    indices in the slice ``minus_one`` become -1, which rows without
+    data_idx match (NO_LOO_IDX)."""
     rng = np.random.default_rng(seed)
-    means = rng.normal(size=(n, d)).astype(np.float32)
+    means = (scale * rng.normal(size=(n, d))).astype(np.float32)
     own = rng.integers(0, n, b)
-    z = (means[own] + 0.5 * rng.normal(size=(b, d))).astype(np.float32)
+    z = (means[own] + 0.5 * scale * rng.normal(size=(b, d))).astype(np.float32)
     ex = (np.arange(n) * 3 + 1).astype(np.int32)
+    if minus_one:
+        ex[slice(*minus_one)] = -1
     valid = rng.random(n) >= 0.05
     didx = ex[own] if loo else None
     t = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
@@ -43,17 +50,34 @@ def _inputs(dev, b, n, d, loo, seed=0):
             t(valid))
 
 
+_LARGE = 10 / np.sqrt(40)   # |z|, |mu| ~ 10 at D = 40
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d,loo,in_dtype", [
-    (1, 300, 8, True, torch.float32),
-    (130, 1000, 40, False, torch.bfloat16),
-    (257, 513, 128, True, torch.float32),    # widest D: >48 KB shared memory
-    (64, 65, 3, True, torch.float32),        # odd D, one column past a tile
-    (5, 64, 40, False, torch.float32),       # N exactly one tile
-    (3000, 50_000, 40, True, torch.bfloat16),
+@pytest.mark.parametrize("b,n,d,loo,in_dtype,extra", [
+    (1, 300, 8, True, torch.float32, {}),
+    (130, 1000, 40, False, torch.bfloat16, {}),
+    (257, 513, 128, True, torch.float32, {}),  # widest D: >48 KB shared memory
+    (96, 700, 128, False, torch.bfloat16, {}),
+    (64, 65, 3, True, torch.float32, {}),      # odd D, one column past a tile
+    (70, 300, 41, True, torch.float32, {}),    # D padded to the MMA depth
+    (70, 300, 41, False, torch.bfloat16, {}),
+    (5, 64, 40, False, torch.float32, {}),     # N exactly one tile
+    (33, 10, 40, True, torch.float32, {}),     # N below one tile
+    (9, 10, 40, False, torch.bfloat16, {}),
+    (63, 500, 40, True, torch.float32, {}),    # around the 64-row m-tiles
+    (65, 500, 40, False, torch.float32, {}),
+    # one tile holds index -1 (compared, masked for every row), the others
+    # are not compared
+    (200, 300, 40, False, torch.float32, {"minus_one": (70, 75)}),
+    (200, 300, 40, False, torch.bfloat16, {"minus_one": (70, 75)}),
+    # large norms stress the cancellation of the 3xTF32 split
+    (500, 2000, 40, False, torch.float32, {"scale": _LARGE}),
+    (500, 2000, 40, True, torch.float32, {"scale": _LARGE}),
+    (3000, 50_000, 40, True, torch.bfloat16, {}),
 ])
-def test_kernel_matches_plain(dev, b, n, d, loo, in_dtype):
-    args = _inputs(dev, b, n, d, loo)
+def test_kernel_matches_plain(dev, b, n, d, loo, in_dtype, extra):
+    args = _inputs(dev, b, n, d, loo, **extra)
     before = tpl.pairwise_lse.launches
     got = tpl.pairwise_lse(*args, in_dtype=in_dtype)
     torch.cuda.synchronize()
