@@ -1,6 +1,6 @@
 """Exemplar prior: log p(z | X) = logsumexp_n log N(z; mu_n, sigma^2 I) - log(den).
 
-Counterpart of exemplar_vae_tpu/ops/exemplar_prior.py (forward). Three
+Counterpart of exemplar_vae_tpu/ops/exemplar_prior.py. Three
 implementations share one API:
 
 * ``impl='naive'``  - the full (B, N) matrix (oracle; small N);
@@ -10,9 +10,12 @@ implementations share one API:
                       kernel on the card (fp32 or bf16 inputs, fp32
                       accumulation), its plain version on the CPU.
 
-'naive' and 'scan' are differentiable through autograd. The kernel is
-forward-only in this slice; the custom backward (``_bwd_wide`` and the
-blockwise schedule of the JAX package) comes with training.
+All of them run inside ONE ``torch.autograd.Function`` (the counterpart of
+the JAX package's ``custom_vjp``): the forward keeps no (B, N) graph, and
+the backward recomputes the softmax weights from the saved row-LSE, in one
+wide shot (three large GEMMs) while the (B, N) weights fit
+WIDE_BWD_MAX_BYTES, else blockwise over exemplar tiles. The kernel itself is
+forward-only; its gradient is this torch backward on every impl.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ import torch
 from exemplar_vae_tpu_torch.ops.pairwise_lse import pairwise_lse
 
 NEG_INF = -1e30  # finite sentinel: keeps running-max arithmetic NaN-free
+
+# The backward takes the wide schedule while 4*B*N bytes (one fp32 (B, N)
+# weight matrix; 20 MB at B = 100, N = 50 000) fit this budget, else the
+# blockwise one. The same number and test as the JAX package, which
+# dispatches on it; tests force each schedule by monkeypatching it. The
+# wide schedule holds two to three (B, N) buffers at once, so 4*B*N
+# undercounts its peak (ROADMAP.md).
+WIDE_BWD_MAX_BYTES = 256 * 1024 * 1024
 
 
 def _logits_tile(z, mu_tile, log_var, d):
@@ -83,6 +94,68 @@ def pairwise_lse_fwd(z, means, log_var, data_idx, ex_idx, valid, impl,
                      f"pallas_bf16")
 
 
+class _PairwiseLSE(torch.autograd.Function):
+    """(B,) row-LSE with the softmax-weight recompute backward.
+
+    Per-pair weight w[b,n] = exp(logits[b,n] - lse[b]); then
+      dz[b]     = sum_n g[b] w[b,n] (mu[n] - z[b]) / sigma^2
+      dmu[n]    = sum_b g[b] w[b,n] (z[b] - mu[n]) / sigma^2
+      dlogvar  += sum_{b,n} g[b] w[b,n] (-D/2 + ||z-mu||^2 / (2 sigma^2))
+    Masked entries have w = 0 and contribute nothing."""
+
+    @staticmethod
+    def forward(ctx, z, means, log_var, data_idx, ex_idx, valid, impl,
+                block_n):
+        lse = pairwise_lse_fwd(z, means, log_var, data_idx, ex_idx, valid,
+                               impl, block_n)
+        ctx.block_n = block_n
+        ctx.save_for_backward(z, means, log_var, data_idx, ex_idx, valid, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        z, means, log_var, data_idx, ex_idx, valid, lse = ctx.saved_tensors
+        # a fully-masked row has lse ~ NEG_INF (or -inf); clamp so that
+        # exp(logits - lse) stays 0 there, not 1 or inf
+        lse = torch.clamp_min(lse, 0.5 * NEG_INF)
+        b, n = z.shape[0], means.shape[0]
+        if 4 * b * n <= WIDE_BWD_MAX_BYTES or not ctx.block_n > 0:
+            tile = max(n, 1)        # wide: one tile, three large GEMMs
+        else:
+            tile = ctx.block_n      # blockwise: one (B, block_n) tile live
+        dz, dmu, dlv = _bwd_tiles(z, means, log_var, data_idx, ex_idx, valid,
+                                  lse, g, tile)
+        return dz, dmu, dlv.reshape(log_var.shape), None, None, None, None, None
+
+
+def _dlv_terms(logits, gw, log_var, d):
+    """sum gw * (-D/2 + sq/(2 sigma^2)), sq recovered from the logits;
+    masked entries contribute 0."""
+    sq_half_inv = torch.where(logits <= NEG_INF * 0.5,
+                              torch.zeros_like(logits),
+                              -(logits + 0.5 * d * log_var))
+    return torch.sum(gw * (-0.5 * d + sq_half_inv))
+
+
+def _bwd_tiles(z, means, log_var, data_idx, ex_idx, valid, lse, g, tile):
+    """The gradient sums over exemplar tiles of width ``tile``: per tile the
+    logits in one (B,D)x(D,TN) GEMM, then two (B,TN)-operand GEMMs.
+    O(B*D + N*D) memory beside one (B, tile) tile."""
+    d = z.shape[1]
+    inv_var = torch.exp(-log_var)
+    dz, dlv, dmu = 0.0, 0.0, []
+    for start in range(0, means.shape[0], tile):
+        sl = slice(start, start + tile)
+        mu = means[sl]
+        logits = _mask_tile(_logits_tile(z, mu, log_var, d), data_idx,
+                            ex_idx[sl], valid[sl])
+        gw = g[:, None] * torch.exp(logits - lse[:, None])        # (B, TN)
+        dz = dz + inv_var * (gw @ mu - torch.sum(gw, dim=-1, keepdim=True) * z)
+        dmu.append(inv_var * (gw.T @ z - torch.sum(gw, dim=0)[:, None] * mu))
+        dlv = dlv + _dlv_terms(logits, gw, log_var, d)
+    return dz, dmu[0] if len(dmu) == 1 else torch.cat(dmu, dim=0), dlv
+
+
 def exemplar_log_prob(
     z: torch.Tensor,
     means: torch.Tensor,
@@ -101,7 +174,7 @@ def exemplar_log_prob(
     scalar log of the mixture denominator (log N at eval, log(N-1) under
     the LOO mask); data_idx (B,) int32 enables LOO; exemplar_idx (N,) int32
     global indices of the exemplars; valid (N,) bool, False rows are
-    padding. Returns (B,) fp32.
+    padding. Returns (B,) fp32, differentiable in z, means and log_var.
     """
     n = means.shape[0]
     if exemplar_idx is None:
@@ -111,10 +184,12 @@ def exemplar_log_prob(
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=means.device)
     log_var = torch.as_tensor(log_var, dtype=torch.float32, device=z.device)
-    lse = pairwise_lse_fwd(z, means, log_var, data_idx, exemplar_idx, valid,
-                           impl, int(block_n))
-    return lse - torch.as_tensor(log_denom, dtype=torch.float32,
-                                 device=z.device)
+    lse = _PairwiseLSE.apply(z.to(torch.float32), means.to(torch.float32),
+                             log_var, data_idx, exemplar_idx, valid, impl,
+                             int(block_n))
+    # a Python scalar: subtracted in fp32 on the device, with no host copy
+    # (a tensor made from it on the card would synchronize the host)
+    return lse - float(log_denom)
 
 
 def lse_combine(m1, s1, m2, s2):

@@ -5,6 +5,7 @@ slice."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def pairwise_sq_dist(q, bank):
@@ -16,19 +17,38 @@ def pairwise_sq_dist(q, bank):
     return torch.clamp_min(q_sq + b_sq - 2.0 * (q @ bank.T), 0.0)
 
 
-@torch.no_grad()
-def encode_bank(model, bank_images, *, chunk: int = 8192, pre_fn=None):
-    """Encode the whole exemplar bank -> (N, Dz) latent means, ``chunk``
-    rows at a time (``chunk <= 0``: one encode). ``pre_fn(xc) -> xc``
-    preprocesses each chunk right before it is encoded, so a raw uint8 bank
-    stays raw on the device. No gradient: this is the eval-time encode."""
-    n = bank_images.shape[0]
-    if chunk is None or chunk <= 0 or chunk >= n:
-        chunk = max(n, 1)
-    outs = []
-    for start in range(0, n, chunk):
-        xc = bank_images[start:start + chunk]
+def encode_bank_with_grad(model, bank_images, *, chunk: int = 8192,
+                          remat: bool = True, pre_fn=None):
+    """Encode the whole exemplar bank -> (N, Dz) latent means, with
+    gradients to the encoder: the exact prior's per-step re-encode.
+
+    ``chunk <= 0`` (or >= N) is one encode; otherwise ``chunk`` rows at a
+    time, the last chunk ragged. ``remat`` recomputes each chunk's
+    activations in the backward (torch.utils.checkpoint) instead of keeping
+    them, so memory stays O(chunk). ``pre_fn(xc) -> xc`` preprocesses each
+    chunk right before it is encoded, inside the recomputed region, so a
+    raw uint8 bank stays raw on the device."""
+
+    def enc(xc):
         if pre_fn is not None:
             xc = pre_fn(xc)
-        outs.append(model.encode_top_mean(xc))
-    return torch.cat(outs, dim=0)
+        return model.encode_top_mean(xc)
+
+    def run(xc):
+        if remat:
+            return checkpoint(enc, xc, use_reentrant=False)
+        return enc(xc)
+
+    n = bank_images.shape[0]
+    if chunk is None or chunk <= 0 or chunk >= n:
+        return run(bank_images)
+    return torch.cat([run(bank_images[s:s + chunk])
+                      for s in range(0, n, chunk)], dim=0)
+
+
+@torch.no_grad()
+def encode_bank(model, bank_images, *, chunk: int = 8192, pre_fn=None):
+    """The eval-time encode: as encode_bank_with_grad, without gradients
+    (so without remat)."""
+    return encode_bank_with_grad(model, bank_images, chunk=chunk, remat=False,
+                                 pre_fn=pre_fn)

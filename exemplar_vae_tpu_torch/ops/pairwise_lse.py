@@ -15,8 +15,9 @@ NEG_INF. The result has no log-denominator.
 ``pairwise_lse_plain`` for CPU tensors; there is no fallback between them.
 ``pairwise_lse.launches`` counts kernel launches (one per call, which runs
 the prep, partial and merge passes). The kernel is forward-only: a call
-that needs a gradient raises on CUDA (the backward belongs to the training
-slice).
+that needs a gradient raises on CUDA. Gradients come from
+``ops/exemplar_prior.exemplar_log_prob``, whose autograd Function calls this
+wrapper with grad mode off and recomputes the weights in its backward.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ SOURCE = _PKG / "csrc" / "pairwise_lse.cu"
 BUILD_DIR = _PKG / "_build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_sm_count: dict = {}     # device index -> SM count, read once per device
 
 
 def _nvcc() -> str:
@@ -176,9 +178,9 @@ def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
     if torch.is_grad_enabled() and (z.requires_grad or means.requires_grad
                                     or log_var.requires_grad):
         raise RuntimeError(
-            "the pairwise-LSE CUDA kernel is forward-only; its backward comes "
-            "with the training slice (ROADMAP.md, Queue 1, Slice B). Call it "
-            "under torch.no_grad() or use impl='scan'.")
+            "the pairwise-LSE CUDA kernel is forward-only; for gradients call "
+            "ops.exemplar_prior.exemplar_log_prob, whose backward recomputes "
+            "the weights, or call this under torch.no_grad().")
     build()
     b, d = z.shape
     n = means.shape[0]
@@ -196,7 +198,10 @@ def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
     if b == 0:
         return out
     lv = log_var.reshape(1).contiguous()
-    sm = torch.cuda.get_device_properties(z.device).multi_processor_count
+    sm = _sm_count.get(z.device.index)
+    if sm is None:
+        sm = torch.cuda.get_device_properties(z.device).multi_processor_count
+        _sm_count[z.device.index] = sm
     code = _DTYPE_CODE[in_dtype]
     scratch = torch.empty((_lib.pairwise_lse_scratch_floats(code, b, n, d, sm),),
                           dtype=torch.float32, device=z.device)

@@ -1,5 +1,5 @@
-"""Importance-weighted test NLL and the eval bank (counterpart of
-exemplar_vae_tpu/train/evaluation.py: make_eval_bank_fn, make_iwae_fn).
+"""Validation ELBO, importance-weighted test NLL and the eval bank
+(counterpart of exemplar_vae_tpu/train/evaluation.py).
 
 Protocol: test NLL = -[logsumexp_s (log p(x|z_s) + log p(z_s) - log q(z_s|x))
 - log S]; at eval the exemplar prior uses the full bank with no LOO mask,
@@ -22,7 +22,7 @@ from exemplar_vae_tpu_torch.models.base import (reconstruction_log_lik,
 from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
 from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
-from exemplar_vae_tpu_torch.train.loss import Bank, eval_log_p_top
+from exemplar_vae_tpu_torch.train.loss import Bank, elbo_terms, eval_log_p_top
 
 
 def model_device(model) -> torch.device:
@@ -63,6 +63,45 @@ def make_eval_bank_fn(model, cfg: Config):
                     cache_means=means, n_effective=bank.n_effective)
 
     return build_bank
+
+
+def make_elbo_eval_fn(model, cfg: Config):
+    """Mean validation loss, RE and KL: the full batches, then the tail
+    batch, each with its own reparameterization draw. The batch means stay
+    on the device until one host read at the end; the weighting by batch
+    size is done in float64 on the host, as in the JAX package."""
+
+    @torch.no_grad()
+    def _terms(x_raw, bank, eps, generator):
+        x = preprocess_batch(x_raw, input_type=cfg.input_type,
+                             dynamic_binarization=cfg.dynamic_binarization,
+                             train=False)
+        re, kl, _ = elbo_terms(model, x, cfg, bank=bank, train=False,
+                               eps=eps, generator=generator)
+        return torch.stack([torch.mean(-re + kl), torch.mean(-re),
+                            torch.mean(kl)])
+
+    def evaluate(images_raw, bank, *, generator=None, eps=None):
+        """(loss, RE, KL) over ``images_raw`` in batches of
+        cfg.test_batch_size. ``eps``: one noise tensor per batch (the full
+        batches, then the tail), else drawn from ``generator``."""
+        x_all = as_tensor(images_raw, model_device(model))
+        n = x_all.shape[0]
+        batch = min(cfg.test_batch_size, n)
+        steps = n // batch
+        starts = list(range(0, steps * batch, batch))
+        if n > steps * batch:
+            starts.append(steps * batch)
+        outs = torch.stack([
+            _terms(x_all[s:s + batch], bank,
+                   None if eps is None else eps[i], generator)
+            for i, s in enumerate(starts)]).cpu().numpy().astype(np.float64)
+        tot = outs[:steps].sum(axis=0) * batch
+        if n > steps * batch:
+            tot = tot + outs[steps] * (n - steps * batch)
+        return tuple(tot / max(n, 1))
+
+    return evaluate
 
 
 def make_iwae_fn(model, cfg: Config):

@@ -1,5 +1,6 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-versions on the card, and the serving path through them at a small size.
+versions on the card, the prior's gradients through the kernel, and the
+serving path through them at a small size.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it also runs where JAX is absent (tests/conftest.py imports JAX, hence
@@ -13,6 +14,11 @@ in another order (bf16 inputs are rounded identically on both sides, and
 their products are exact); |z|^2 + |mu|^2 - 2 z.mu cancels, so the error
 scales with the norms (~80 at D = 40, a few ulps of 7.6e-6), not with an
 LSE that may lie near 0.
+
+Gradients through the kernel: the backward recomputes the logits with fp32
+torch GEMMs (TF32 off) and divides by the kernel's LSE, which differs from
+the scan's by up to ~2e-5; that scales each row's weights by 1 +- 2e-5, so
+each gradient tensor is held within GRAD_REL = 1e-4 of its largest element.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ import torch
 from exemplar_vae_tpu_torch.ops import pairwise_lse as tpl
 
 RTOL, ATOL = 1e-5, 1e-4
+GRAD_REL = 1e-4
 
 
 @pytest.fixture
@@ -111,6 +118,32 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         tpl.pairwise_lse(z.requires_grad_(), means, lv, didx, ex, valid)
     with pytest.raises(ValueError, match="different devices"):
         tpl.pairwise_lse(z.detach(), means.cpu(), lv, didx, ex, valid)
+
+
+@pytest.mark.cuda
+def test_prior_gradients_through_kernel_match_scan(dev):
+    """exemplar_log_prob at the train shape (B = 100, N = 50 000, D = 40,
+    LOO): the kernel forward and the scan forward give the same gradients
+    in z, means and log_var through the shared backward, one launch."""
+    from exemplar_vae_tpu_torch.ops.exemplar_prior import exemplar_log_prob
+    z, means, _, didx, ex, valid = _inputs(dev, 100, 50_000, 40, True)
+    g = torch.randn(100, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    grads = {}
+    for impl in ("pallas", "scan"):
+        leaves = [t.clone().requires_grad_() for t in
+                  (z, means, torch.tensor(-0.3, device=dev))]
+        before = tpl.pairwise_lse.launches
+        out = exemplar_log_prob(*leaves[:2], leaves[2],
+                                log_denom=float(np.log(49_999.0)),
+                                data_idx=didx, exemplar_idx=ex, valid=valid,
+                                impl=impl)
+        (g * out).sum().backward()
+        assert tpl.pairwise_lse.launches == before + (impl == "pallas")
+        grads[impl] = [t.grad for t in leaves]
+    for name, a, b in zip(("dz", "dmu", "dlogvar"), *grads.values()):
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a - b).abs().max())
+        assert err <= GRAD_REL * float(b.abs().max()), (name, err)
 
 
 @pytest.mark.cuda

@@ -63,16 +63,24 @@ def _entry_points():
     from exemplar_vae_tpu_torch.config import Config
     from exemplar_vae_tpu_torch.device import resolve_device
     from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.main import main
     from exemplar_vae_tpu_torch.serve import ServingBundle
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
     return {
         "resolve_device": lambda: resolve_device(),
         "create_model": lambda: create_model(Config(hidden_size=8, z1_size=2)),
         "ServingBundle.load": lambda: ServingBundle.load("no-such-bundle"),
+        "Experiment": lambda: Experiment(Config(
+            dataset_name="synthetic", training_set_size=8, val_set_size=4,
+            test_set_size=4, hidden_size=8, z1_size=2)),
+        "main": lambda: main(["--dataset_name", "synthetic",
+                              "--training_set_size", "8", "--val_set_size",
+                              "4", "--test_set_size", "4"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "create_model",
-                                  "ServingBundle.load"])
+                                  "ServingBundle.load", "Experiment", "main"])
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
