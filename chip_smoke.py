@@ -9,8 +9,9 @@ Phases; any failure exits non-zero before the result lines:
 1. a CUDA card is present, and importing the port loads no JAX;
 2. every kernel is built from the sources in the checkout (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, fp32 and
-   bf16 inputs, at the serving shape (B = N = 50 000, D = 40, no LOO) and
-   the train shape (B = 100, N = 50 000, LOO), with ~1% invalid exemplars
+   bf16 inputs, at the serving shape (B = N = 50 000, D = 40, no LOO; also
+   Config 3's IWAE shape), the train shape (B = 100, N = 50 000, LOO) and
+   the validation shape (B = 100, no LOO), with ~1% invalid exemplars
    and an N that no tile divides; kernel, plain, library-yardstick and
    bound times (the library yardstick is freed before phase 4);
 4. the serving path of BASELINE Config 1 at full width: a seeded VAE
@@ -39,7 +40,25 @@ Phases; any failure exits non-zero before the result lines:
    trains one epoch into a temporary snapshot directory (val/test 256,
    S = MB = 8) and its metrics.jsonl and results.json must hold finite
    numbers;
-6. the kernels line, the card's name and power limit, and the ok line.
+6. BASELINE Config 3, the JAX package's bench row 3 at full width: the
+   two-level ConvHVAE (default conv spec, hidden 300, z1 = z2 = 40) on
+   fashion_mnist (with no IDX files on disk its 28x28 gray synthetic
+   stand-in, logistic-256 likelihood), the approximate kNN exemplar prior
+   (K = 10, per-row support, a stale cache of all N = 50 000 exemplars),
+   batch 100, bf16 compute, the bank encoded in one piece. (a) The cache
+   refresh, timed; (b) a warm-up, then one timed 200-step epoch call:
+   ms/step, images/s, peak memory, and no kernel launch (the train step's
+   prior is a per-row LSE over K); (c) a 10-step call under torch.profiler:
+   busy and idle shares, launches per step, device time by group, host
+   synchronizations of a 3-step call, and the B*K re-encode alone; (d) the
+   validation ELBO over 10 000 images, timed, one kernel launch per batch;
+   (e) one IWAE request of 100 points at S = 5000, MB = 500 against the
+   50 000-row eval bank at fp32, through the kernel (one launch per round)
+   and through the scan on the same noise, within rtol 1e-5, its time and
+   peak memory, and its device time by group under the profiler; (f) the
+   CLI trains one epoch of it, finite metrics, and the
+   exact kernel launch count computed from its config;
+7. the kernels line, the card's name and power limit, and the ok line.
 """
 
 import contextlib
@@ -79,6 +98,9 @@ TRAIN_B, TRAIN_STEPS, WARM_STEPS, PROF_STEPS = 100, 200, 20, 10
 # from the scan's by up to ~2e-5, which scales each row's prior weights by
 # 1 +- 2e-5 in the shared backward
 STEP_LOSS_RTOL, GRAD_REL = 1e-5, 1e-4
+# Config 3: validation images, IWAE points per request, B*K re-encode calls
+C3_VAL, C3_T, C3_REENCODE = 10_000, 100, 5
+C3_S, C3_MB = 5000, 500                  # the IWAE protocol (Config defaults)
 
 
 def check(cond, msg):
@@ -219,7 +241,8 @@ def kernel_phase(pl):
     log(f"[kernel] bound inputs: {sm_count} SMs, max SM clock "
         f"{sm_hz / 1e6:.0f} MHz")
     results = {}
-    for shape, b, loo in (("serving", 50_000, False), ("train", 100, True)):
+    for shape, b, loo in (("serving", 50_000, False), ("train", 100, True),
+                          ("validation", 100, False)):
         own = torch.randint(0, N_BANK, (b,), generator=g, device=dev)
         z = means[own] + 0.7 * torch.randn((b, D), generator=g, device=dev)
         data_idx = own.to(torch.int32) if loo else None
@@ -263,8 +286,9 @@ def kernel_phase(pl):
                 f"max_rel_err={max_rel:.3e} (atol {atol}, rtol {rtol}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by}: {term}; {100 * bound_ms / ms:.1f}% of it) "
-                f"SIMT kernel {SIMT_MS[(shape, dt_name)]} ms (recorded)")
+                f"({bound_by}: {term}; {100 * bound_ms / ms:.1f}% of it)"
+                + (f" SIMT kernel {SIMT_MS[(shape, dt_name)]} ms (recorded)"
+                   if (shape, dt_name) in SIMT_MS else ""))
     return results
 
 
@@ -391,12 +415,47 @@ def serving_phase(pl):
 
 
 def _kernel_group(name):
-    if "lse_" in name:
+    """Device-time group of a kernel, by its name."""
+    n = name.lower()
+    if "lse_" in n:
         return "pairwise_lse kernel"
-    if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_",
-                               "sm80_")):
+    if any(k in n for k in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                            "implicit")):
+        return "convolutions (cuDNN)"
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_",
+                            "sm80_")):
         return "cuBLAS GEMMs"
+    if any(k in n for k in ("topk", "sort", "gather", "scatter", "index")):
+        return "top-k, sort, gather/scatter"
+    if any(k in n for k in ("multi_tensor", "foreach")):
+        return "optimizer (foreach)"
     return "elementwise and reductions"
+
+
+def log_profile(tag, steps, prof, unit="step"):
+    """The busy/idle line, the groups and the top kernels of a profiled
+    call of ``steps`` steps (or requests: ``unit``); returns (busy ms per
+    step, idle share)."""
+    wall, busy, kernels, _ = prof
+    if not kernels:
+        log(f"[{tag}] wall {wall:.3f} ms; the profiler recorded no device "
+            f"time: device busy share not measured")
+        return None, None
+    log(f"[{tag}] {steps}-{unit} call: wall {wall:.3f} ms "
+        f"({wall / steps:.4f} ms/{unit}), device busy {busy:.3f} ms "
+        f"({busy / steps:.4f} ms/{unit}, {100 * busy / wall:.1f}%), "
+        f"idle {100 * (1 - busy / wall):.1f}%")
+    groups = {}
+    for name, ms, _ in kernels:
+        k = _kernel_group(name)
+        groups[k] = groups.get(k, 0.0) + ms
+    for k, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[{tag}]   group {k}: {ms / steps:.4f} ms/{unit} "
+            f"({100 * ms / busy:.1f}%)")
+    for name, ms, calls in kernels[:12]:
+        log(f"[{tag}]   {ms / steps:8.4f} ms/{unit} {100 * ms / busy:5.1f}% "
+            f"x{calls:<5d} {name}")
+    return busy / steps, 1 - busy / wall
 
 
 def training_phase(pl, snap_dir):
@@ -453,36 +512,10 @@ def training_phase(pl, snap_dir):
         f"{ips * N_BANK:.4g} exemplar distances/s; loss {loss:.4f}; "
         f"pairwise_lse launches {launches}; peak memory {peak_gb:.2f} GB")
 
-    wall, busy, kernels, ops = profile_ms(lambda: run(
-        exp.epoch_perm(PROF_STEPS, TRAIN_B)))
-    launch_calls = sum(c for name, _, c in ops if "LaunchKernel" in name)
-    log(f"[train-profile] host: {launch_calls / PROF_STEPS:.1f} kernel "
-        f"launches per step; top operators by self host time per step: "
-        + "; ".join(f"{name} {ms / PROF_STEPS:.4f} ms x{c / PROF_STEPS:g}"
-                    for name, ms, c in ops[:10]))
-    control = host_syncs(lambda: float(exp.train_x[0].sum()))
-    syncs = host_syncs(lambda: run(exp.epoch_perm(3, TRAIN_B)))
-    log(f"[train-profile] host synchronizations in a 3-step call: "
-        f"{len(syncs)} (the detector sees {len(control)} in one host read)"
-        + (f"; first: {syncs[0][:160]}" if syncs else ""))
-    if kernels:
-        log(f"[train-profile] {PROF_STEPS}-step call: wall {wall:.3f} ms "
-            f"({wall / PROF_STEPS:.4f} ms/step), device busy {busy:.3f} ms "
-            f"({busy / PROF_STEPS:.4f} ms/step, {100 * busy / wall:.1f}%), "
-            f"idle {100 * (1 - busy / wall):.1f}%")
-        groups = {}
-        for name, ms, _ in kernels:
-            k = _kernel_group(name)
-            groups[k] = groups.get(k, 0.0) + ms
-        for k, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"[train-profile]   group {k}: {ms / PROF_STEPS:.4f} ms/step "
-                f"({100 * ms / busy:.1f}%)")
-        for name, ms, calls in kernels[:12]:
-            log(f"[train-profile]   {ms / PROF_STEPS:8.4f} ms/step "
-                f"{100 * ms / busy:5.1f}% x{calls:<5d} {name}")
-    else:
-        log(f"[train-profile] wall {wall:.3f} ms; the profiler recorded no "
-            f"device time: device busy share not measured")
+    prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
+    log_host(prof, "train-profile", PROF_STEPS)
+    log_syncs("train-profile", exp, run)
+    log_profile("train-profile", PROF_STEPS, prof)
 
     prior_timing()
 
@@ -566,6 +599,234 @@ def training_phase(pl, snap_dir):
     return launches, cli_launches
 
 
+def config3_phase(pl, snap_dir):
+    from exemplar_vae_tpu_torch.config import (Config, config_from_args,
+                                               reference_arg_parser)
+    from exemplar_vae_tpu_torch.main import main as cli_main
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
+                                                         make_iwae_fn)
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+
+    data_dir = snap_dir / "no_data"        # no IDX files: the gray stand-in
+    data_dir.mkdir()
+    cfg = Config(dataset_name="fashion_mnist", model_name="convhvae_2level",
+                 prior="exemplar_prior", approximate_prior=True,
+                 approximate_k=10, approximate_support="per_row",
+                 number_components=N_BANK, training_set_size=N_BANK,
+                 val_set_size=C3_VAL, test_set_size=C3_T, batch_size=TRAIN_B,
+                 hidden_size=300, z1_size=D, z2_size=D, S=C3_S, MB=C3_MB,
+                 exact_reencode_chunk=0, compute_dtype="bfloat16",
+                 use_pallas_prior=True, data_dir=str(data_dir),
+                 snapshot_dir=str(snap_dir / "c3"), seed=14)
+    check(cfg.conv_enc_spec == "32k7s1,32k3s2,64k5s1,64k3s2"
+          and cfg.conv_dec_spec == "t64k3s2,t32k3s2,c32k3s1"
+          and cfg.conv_proj_channels == 64, "Config's conv spec is not the "
+          "default of the JAX package")
+    t0 = time.perf_counter()
+    exp = Experiment(cfg, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(exp.cfg.input_type == "gray" and exp.splits.source == "synthetic"
+          and tuple(exp.train_x.shape) == (N_BANK, 28, 28, 1),
+          f"Config 3 data: {exp.cfg.input_type} {exp.splits.source} "
+          f"{tuple(exp.train_x.shape)}")
+    n_params = sum(p.numel() for p in exp.model.parameters())
+
+    # (a) the cache refresh: the whole bank through q(z2|x), no gradient
+    refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
+                                        generator=exp.gen)
+    torch.cuda.reset_peak_memory_stats()
+    refresh_ms = cuda_ms(refresh, 3, warmup=1)
+    refresh_gb = torch.cuda.max_memory_allocated() / 1e9
+    exp.bank = exp.bank._replace(cache_means=refresh())
+    check(bool(torch.isfinite(exp.bank.cache_means).all()),
+          "non-finite cache means")
+
+    # (b) the timed 200-step call
+    run = lambda perm: exp.epoch_fn(  # noqa: E731
+        exp.state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,
+        generator=exp.gen)
+    exp.state, _ = run(exp.epoch_perm(WARM_STEPS, TRAIN_B))
+    perm = exp.epoch_perm(TRAIN_STEPS, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the train part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    exp.state, metrics = run(perm)
+    loss = float(metrics["loss"])           # host read: ends the timed call
+    dt = time.perf_counter() - t0
+    train_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(loss), f"Config 3 training loss {loss}")
+    check(train_launches == 0, f"the approximate train step launched the "
+          f"kernel {train_launches} times (its prior is a per-row LSE)")
+    ms_step = dt / TRAIN_STEPS * 1e3
+    log(f"[config3] BASELINE Config 3 (bench row 3 at full width): ConvHVAE "
+        f"enc {cfg.conv_enc_spec} dec {cfg.conv_dec_spec} proj "
+        f"{cfg.conv_proj_channels}, hidden {cfg.hidden_size}, z1 = z2 = {D}, "
+        f"{n_params} params, bf16 compute; fashion_mnist -> synthetic gray "
+        f"28x28 (logistic-256); approximate prior K={cfg.approximate_k} "
+        f"{cfg.approximate_support} over N={N_BANK}, batch {TRAIN_B}, bank "
+        f"encode in one piece; set-up (data, model) {setup_s:.2f} s")
+    log(f"[config3] cache refresh (N={N_BANK}, one encode): {refresh_ms:.3f} "
+        f"ms (events, mean of 3); peak memory {refresh_gb:.2f} GB")
+    log(f"[config3] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
+        f"{ms_step:.4f} ms/step, {TRAIN_STEPS * TRAIN_B / dt:.1f} images/s; "
+        f"loss {loss:.4f}; pairwise_lse launches {train_launches} (none "
+        f"expected); peak memory {peak_gb:.2f} GB")
+
+    # (c) profile, host syncs, the B*K re-encode alone
+    prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
+    launches_step = log_host(prof, "config3-profile", PROF_STEPS)
+    n_syncs = log_syncs("config3-profile", exp, run)
+    busy_step, idle = log_profile("config3-profile", PROF_STEPS, prof)
+    check(n_syncs == 0, f"the Config 3 step synchronized the host "
+          f"{n_syncs} times in 3 steps")
+    x_bk = exp.train_x[:TRAIN_B * cfg.approximate_k].to(torch.bfloat16)
+
+    def reencode():
+        exp.model.encode_top_mean(x_bk).float().sum().backward()
+
+    _, re_busy, _, _ = profile_ms(
+        lambda: [reencode() for _ in range(C3_REENCODE)])
+    exp.state.opt.zero_grad(set_to_none=True)
+    log(f"[config3-profile] the B*K = {x_bk.shape[0]}-row re-encode through "
+        f"q(z2|x) alone, forward + backward: {re_busy / C3_REENCODE:.4f} ms "
+        f"of device time per call")
+
+    # (d) the validation ELBO (eval bank encode + 100 batches)
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    val = exp.validate()
+    val_s = time.perf_counter() - t0
+    val_launches = pl.pairwise_lse.launches
+    want_val = -(-C3_VAL // cfg.test_batch_size)
+    check(all(math.isfinite(v) for v in val), f"Config 3 validation {val}")
+    check(val_launches == want_val, f"validation launched the kernel "
+          f"{val_launches} times, not {want_val}")
+    log(f"[config3] validation ELBO over {C3_VAL} images (bf16): "
+        f"{val_s:.3f} s (host clock, eval bank encode included); loss "
+        f"{val[0]:.4f}; pairwise_lse launches {val_launches}")
+
+    # (e) one IWAE request at fp32, through the kernel and the scan
+    c32 = exp.cfg.replace(compute_dtype="float32")
+    m32 = create_model(c32, device="cuda")
+    m32.load_state_dict(exp.model.state_dict())
+    m32.eval()
+    eb = make_eval_bank_fn(m32, c32)(exp.bank)
+    rounds, r = -(-c32.S // c32.MB), c32.MB
+    g = torch.Generator("cuda").manual_seed(7)
+    eps = (torch.randn((rounds, C3_T * r, D), generator=g, device="cuda"),
+           torch.randn((rounds, C3_T * r, D), generator=g, device="cuda"))
+    iwae_k = make_iwae_fn(m32, c32).chunk_nll
+    iwae_k(exp.test_x, eb, rounds, r, eps=eps)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the IWAE part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    nll_k = iwae_k(exp.test_x, eb, rounds, r, eps=eps).cpu()
+    iwae_ms = (time.perf_counter() - t0) * 1e3
+    iwae_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    iwae_gb = torch.cuda.max_memory_allocated() / 1e9
+    nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False)).chunk_nll(
+        exp.test_x, eb, rounds, r, eps=eps).cpu()
+    err = float((nll_k - nll_s).abs().max())
+    check(iwae_launches == rounds, f"the IWAE request launched the kernel "
+          f"{iwae_launches} times, not {rounds}")
+    check(nll_k.shape == (C3_T,) and bool(torch.isfinite(nll_k).all()),
+          "Config 3 IWAE NLL not finite")
+    check(bool(((nll_k - nll_s).abs() <= NLL_RTOL * nll_s.abs()).all()),
+          f"Config 3 IWAE kernel vs scan max abs diff {err:.3g} > rtol "
+          f"{NLL_RTOL}")
+    log(f"[config3] IWAE request of {C3_T} points, S={c32.S}, MB={r} "
+        f"({rounds} rounds of {C3_T * r} rows), fp32, eval bank N={N_BANK}: "
+        f"{iwae_ms:.3f} ms (warm, host clock); mean NLL "
+        f"{float(nll_k.mean()):.4f}; kernel vs scan max abs diff {err:.3e} "
+        f"(rtol {NLL_RTOL}); pairwise_lse launches {iwae_launches}; peak "
+        f"memory {iwae_gb:.2f} GB")
+    log_profile("config3-iwae", 1, profile_ms(
+        lambda: iwae_k(exp.test_x, eb, rounds, r, eps=eps)), unit="request")
+    del exp, m32, eb, eps, run, prof
+    torch.cuda.empty_cache()
+
+    # (f) the CLI, one epoch
+    cli_dir = snap_dir / "c3_cli"
+    argv = ["--model_name", "convhvae_2level", "--dataset_name",
+            "fashion_mnist", "--data_dir", str(data_dir),
+            "--approximate_prior", "--approximate_k", "10",
+            "--training_set_size", str(N_BANK), "--number_components",
+            str(N_BANK), "--batch_size", str(TRAIN_B), "--val_set_size",
+            "256", "--test_set_size", "100",
+            "--epochs", "1", "--S", "8", "--MB", "8", "--compute_dtype",
+            "bfloat16", "--snapshot_dir", str(cli_dir)]
+    out = io.StringIO()
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = pl.pairwise_lse.launches
+    for line in out.getvalue().splitlines():
+        log(f"[config3-cli] | {line}")
+    # the approximate train step launches none; one per validation batch
+    # (after the epoch and again in the final evaluation) and per IWAE chunk
+    # and round
+    c = config_from_args(reference_arg_parser().parse_args(argv))
+    val_batches = -(-c.val_set_size // c.test_batch_size)
+    want = (val_batches * (c.epochs + 1)
+            + -(-c.test_set_size // c.test_batch_size) * -(-c.S // c.MB))
+    check(cli_launches == want, f"the Config 3 CLI epoch launched the kernel "
+          f"{cli_launches} times, not {want}")
+    (exp_dir,) = [p for p in cli_dir.iterdir() if p.is_dir()]
+    records = [json.loads(line) for line in
+               (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    on_disk = json.loads((exp_dir / "results.json").read_text())
+    nums = [v for rec in records + [on_disk] for v in rec.values()
+            if isinstance(v, (int, float))]
+    check(len(records) == 2 and on_disk == results
+          and all(math.isfinite(v) for v in nums),
+          f"Config 3 CLI metrics or results not finite: {records} {on_disk}")
+    log(f"[config3-cli] python -m exemplar_vae_tpu_torch.main "
+        f"{' '.join(argv)}: {cli_s:.2f} s; epoch "
+        f"{records[0]['epoch_seconds']:.3f} s "
+        f"({records[0]['images_per_sec']:.1f} images/s, cache refresh and "
+        f"bank encode in chunks of 8192, the CLI's defaults); loss "
+        f"{records[0]['loss']:.4f}, val_loss {records[0]['val_loss']:.4f}, "
+        f"test_nll {results['test_nll']:.4f}; pairwise_lse launches "
+        f"{cli_launches}")
+    return {"config3_train": train_launches, "config3_validation": val_launches,
+            "config3_iwae": iwae_launches, "config3_cli_epoch": cli_launches}
+
+
+def log_host(prof, tag, steps):
+    """Kernel launches per step and the top host operators of a profiled
+    call; returns the launches per step."""
+    ops = prof[3]
+    per_step = sum(c for name, _, c in ops if "LaunchKernel" in name) / steps
+    log(f"[{tag}] host: {per_step:.1f} kernel launches per step; top "
+        f"operators by self host time per step: "
+        + "; ".join(f"{name} {ms / steps:.4f} ms x{c / steps:g}"
+                    for name, ms, c in ops[:10]))
+    return per_step
+
+
+def log_syncs(tag, exp, run, steps=3):
+    """Host synchronizations of a ``steps``-step call, beside a positive
+    control; returns their number."""
+    control = host_syncs(lambda: float(exp.train_x[0].sum()))
+    syncs = host_syncs(lambda: run(exp.epoch_perm(steps, exp.cfg.batch_size)))
+    log(f"[{tag}] host synchronizations in a {steps}-step call: "
+        f"{len(syncs)} (the detector sees {len(control)} in one host read)"
+        + (f"; first: {syncs[0][:160]}" if syncs else ""))
+    return len(syncs)
+
+
 def prior_timing(calls=50):
     """The exemplar prior alone at the train shape (B = 100, N = 50 000,
     D = 40, LOO, fp32): forward through the kernel, then the torch backward
@@ -593,7 +854,18 @@ def prior_timing(calls=50):
                                 exemplar_idx=ex, valid=valid, impl="pallas")
         out.backward(cot)
 
+    def library_fwd_bwd():
+        # yardstick only: the (B, N) logits materialised with autograd, then
+        # torch.logsumexp; the backward is autograd's
+        lg_z, lg_mu, lg_lv = leaves
+        sq = ((lg_z * lg_z).sum(-1, keepdim=True) - 2.0 * lg_z @ lg_mu.T
+              + (lg_mu * lg_mu).sum(-1)[None]).clamp_min(0.0)
+        logits = -0.5 * (D * lg_lv + sq * torch.exp(-lg_lv))
+        logits = logits.masked_fill(own[:, None] == ex[None], -1e30)
+        (torch.logsumexp(logits, dim=-1) - math.log(N_BANK - 1)).backward(cot)
+
     ms = cuda_ms(fwd_bwd, calls)
+    library_ms = cuda_ms(library_fwd_bwd, calls)
     _, busy, kernels, _ = profile_ms(lambda: [fwd_bwd() for _ in range(calls)])
     lse_ms = sum(t for name, t, _ in kernels if "lse_" in name) / calls
     bwd_ms = busy / calls - lse_ms
@@ -604,7 +876,9 @@ def prior_timing(calls=50):
         f"kernel forward + torch backward: {ms:.4f} ms per call (events); "
         f"device {busy / calls:.4f} ms per call: kernel {lse_ms:.4f} ms, "
         f"backward {bwd_ms:.4f} ms against its bound "
-        f"{terms[term] * 1e3:.4f} ms ({term}); top backward kernels: "
+        f"{terms[term] * 1e3:.4f} ms ({term}); library yardstick "
+        f"(materialised logits + torch.logsumexp, autograd forward+backward) "
+        f"{library_ms:.4f} ms per call (events); top backward kernels: "
         + "; ".join(
             f"{name[:50]} {t / calls:.4f}" for name, t, _ in kernels
             if "lse_" not in name)[:600])
@@ -638,15 +912,17 @@ def main():
     launches = serving_phase(pl)
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = training_phase(pl, Path(snap))
+        c3 = config3_phase(pl, Path(snap))
 
     main_v = kern[("serving", "float32")]
     entry = {
         "name": "pairwise_lse", "route": "cuda",
         "source": "exemplar_vae_tpu_torch/csrc/pairwise_lse.cu",
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
-        "launches": launches + train_launches,
+        "launches": (launches + train_launches + c3["config3_validation"]
+                     + c3["config3_iwae"]),
         "launches_per_path": {"serving": launches, "training": train_launches,
-                              "cli_epoch": cli_launches},
+                              "cli_epoch": cli_launches, **c3},
         "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],

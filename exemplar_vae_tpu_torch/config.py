@@ -16,6 +16,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import re
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -171,6 +172,22 @@ class Config:
             if k in d and isinstance(d[k], list):
                 d[k] = tuple(d[k])
         return Config(**d)
+
+
+def parse_conv_spec(spec: str):
+    """A conv-stack spec string -> (kind, features, kernel, stride) tuples.
+    Grammar per comma-separated layer: ``[t|c]<features>k<kernel>s<stride>``
+    (``t`` a transposed conv, ``c`` or nothing a conv)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        m = re.fullmatch(r"([tc]?)(\d+)k(\d+)s(\d+)", part)
+        if not m:
+            raise ValueError(
+                f"bad conv-spec layer {part!r} (want [t|c]<feat>k<k>s<s>)")
+        out.append((m.group(1) or "c", int(m.group(2)), int(m.group(3)),
+                    int(m.group(4))))
+    return tuple(out)
 
 
 def reference_arg_parser() -> argparse.ArgumentParser:

@@ -6,11 +6,15 @@ import torch
 
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.device import resolve_device
+from exemplar_vae_tpu_torch.models.conv_hvae import ConvHVAE
+from exemplar_vae_tpu_torch.models.hvae import HVAE
+from exemplar_vae_tpu_torch.models.vae import VAE
+
+_MODELS = {"vae": VAE, "hvae_2level": HVAE, "convhvae_2level": ConvHVAE}
 
 _LATER = {
-    "hvae_2level": "the HVAE slice",
-    "convhvae_2level": "the ConvHVAE slice",
-    "pixelhvae_2level": "the beyond-parity slice (PixelHVAE)",
+    "pixelhvae_2level": "the beyond-parity slice (PixelHVAE; ROADMAP.md, "
+                        "Queue 1, item 12)",
 }
 _ALIASES = {"hvae": "hvae_2level", "convhvae": "convhvae_2level",
             "conv_hvae": "convhvae_2level", "pixelhvae": "pixelhvae_2level",
@@ -27,9 +31,8 @@ def create_model(cfg: Config, device="cuda", seed=None):
     if name in _LATER:
         raise NotImplementedError(
             f"model_name={cfg.model_name!r} is not ported yet: it comes with "
-            f"{_LATER[name]} (ROADMAP.md, Queue 1)")
-    if name != "vae":
+            f"{_LATER[name]}")
+    if name not in _MODELS:
         raise ValueError(f"unknown model_name: {cfg.model_name}")
-    from exemplar_vae_tpu_torch.models.vae import VAE
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    return VAE(cfg, generator=gen).to(dev)
+    return _MODELS[name](cfg, generator=gen).to(dev)

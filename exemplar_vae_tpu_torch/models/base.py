@@ -2,10 +2,12 @@
 exemplar_vae_tpu/models/base.py).
 
 Every model exposes the same method surface:
-  forward(x, eps=..., generator=...) -> ForwardOut
+  forward(x, eps=..., generator=...) -> ForwardOut (eps: (B, Dz), or the
+                                pair (eps2, eps1) for the two-level models)
   encode_top(x)              -> (mean, logvar) of the prior-level latent
   encode_top_mean(x)         -> mean only (exemplar-bank caching)
-  generate_from_top(z)       -> decoded x parameters (generation path)
+  generate_from_top(z, eps=..., generator=...) -> decoder means (eps: the
+                                two-level models' z1 noise)
   log_p_z_top(z, ...)        -> prior log-density {standard, vampprior,
                                 exemplar_prior}
 """
@@ -25,7 +27,7 @@ from exemplar_vae_tpu_torch.ops.distributions import (
     log_normal_diag,
     log_normal_standard,
 )
-from exemplar_vae_tpu_torch.ops.exemplar_prior import exemplar_log_prob
+from exemplar_vae_tpu_torch.ops.exemplar_prior import NEG_INF, exemplar_log_prob
 
 
 class ForwardOut(NamedTuple):
@@ -39,11 +41,13 @@ class ForwardOut(NamedTuple):
 
 
 def reparameterize(mean, logvar, *, eps=None, generator=None):
-    """z = mean + sigma * eps, with eps injected or drawn from ``generator``."""
+    """z = mean + sigma * eps, with eps injected (a tensor or an array) or
+    drawn from ``generator``."""
     if eps is None:
         eps = torch.randn(mean.shape, generator=generator, device=mean.device,
                           dtype=mean.dtype)
-    return mean + torch.exp(0.5 * logvar) * eps.to(mean.device, mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * torch.as_tensor(
+        eps, dtype=mean.dtype, device=mean.device)
 
 
 def reconstruction_log_lik(x, x_mean, x_logvar, input_type: str):
@@ -79,6 +83,26 @@ def clamped_prior_log_var(model, cfg=None):
     [prior_log_var_floor(cfg), 8] (the JAX version reads it from a params
     dict; here the model holds it)."""
     return hardtanh(model.prior_log_var, prior_log_var_floor(cfg), 8.0)
+
+
+def rows_exemplar_log_prob(z, means_bk, log_var, *, log_denom, data_idx=None,
+                           exemplar_idx_bk=None):
+    """Exemplar prior over a per-row support set (approximate-kNN mode):
+    each batch point b has its own K re-encoded neighbours. LSE over K with
+    the full-set denominator ``log_denom``, so the objective stays a lower
+    bound on the exact mixture; a neighbour that is the point itself (LOO)
+    is masked to NEG_INF.
+
+    z (B, D); means_bk (B, K, D); exemplar_idx_bk (B, K) global indices.
+    """
+    d = z.shape[-1]
+    sq = torch.sum(torch.square(z[:, None, :] - means_bk), dim=-1)   # (B, K)
+    lp = -0.5 * (d * log_var + sq * torch.exp(-log_var))
+    if data_idx is not None and exemplar_idx_bk is not None:
+        lp = torch.where(exemplar_idx_bk == data_idx[:, None], NEG_INF, lp)
+    m = torch.amax(lp, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(lp - m[:, None]), dim=-1))
+    return lse - float(log_denom)
 
 
 class PriorMixin:
@@ -122,10 +146,10 @@ class PriorMixin:
                     - math.log(cfg.number_components))
         if bank_means is None:
             raise ValueError("exemplar prior requires bank_means")
-        if bank_means.dim() == 3:
-            raise NotImplementedError(
-                "per-row (approximate kNN) exemplar support comes with the "
-                "approximate-prior slice (ROADMAP.md, Queue 1)")
+        if bank_means.dim() == 3:                   # approx: per-row K
+            return rows_exemplar_log_prob(
+                z, bank_means, self.get_prior_log_var(), log_denom=log_denom,
+                data_idx=data_idx, exemplar_idx_bk=exemplar_idx)
         return exemplar_log_prob(
             z, bank_means, self.get_prior_log_var(), log_denom=log_denom,
             data_idx=data_idx, exemplar_idx=exemplar_idx, valid=valid,

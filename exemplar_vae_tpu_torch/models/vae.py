@@ -77,5 +77,7 @@ class VAE(PriorMixin, nn.Module):
                           torch.zeros(x.shape[0], dtype=torch.float32,
                                       device=x.device))
 
-    def generate_from_top(self, z):
+    def generate_from_top(self, z, *, eps=None, generator=None):
+        """Decoder means of z; ``eps`` and ``generator`` are unused (the
+        two-level models draw their lower latent from them)."""
         return self.decode(z)[0]

@@ -43,21 +43,23 @@ def make_serving_fns(model, cfg: Config, n_effective: int, n_gen: int,
     in the draw order of the JAX programs."""
 
     @torch.no_grad()
-    def generate(bank_means, *, generator=None, idx=None, eps=None):
+    def generate(bank_means, *, generator=None, idx=None, eps=None,
+                 eps1=None):
         if cfg.prior != "exemplar_prior":
             return sampling.generate_x(model, cfg, n_gen, generator=generator,
-                                       idx=idx, eps=eps)
+                                       idx=idx, eps=eps, eps1=eps1)
         dev = model_device(model)
         i = sampling.draw_index(idx, n_gen, n_effective, generator, dev)
         mu = as_tensor(bank_means, dev)[i]
         log_var = clamped_prior_log_var(model, cfg)
         z = mu + torch.exp(0.5 * log_var) * sampling.draw_normal(
             eps, mu.shape, generator, dev)
-        return model.generate_from_top(z)
+        return model.generate_from_top(z, eps=eps1, generator=generator)
 
-    def reference_generate(x_ref_raw, *, generator=None, eps=None):
+    def reference_generate(x_ref_raw, *, generator=None, eps=None,
+                           eps1=None):
         return sampling.reference_based_generation_x(
-            model, cfg, x_ref_raw, generator=generator, eps=eps)
+            model, cfg, x_ref_raw, generator=generator, eps=eps, eps1=eps1)
 
     iwae = make_iwae_fn(model, cfg)
 
@@ -139,22 +141,25 @@ class ServingBundle:
             return x.astype(np.float32) / 255.0
         return x.astype(np.float32)
 
-    def generate(self, *, generator=None, idx=None, eps=None):
+    def generate(self, *, generator=None, idx=None, eps=None, eps1=None):
         bm = self.bank["bank_means"] if self.bank is not None else None
-        return self._generate(bm, generator=generator, idx=idx, eps=eps)
+        return self._generate(bm, generator=generator, idx=idx, eps=eps,
+                              eps1=eps1)
 
-    def reference_generate(self, x_ref, *, generator=None, eps=None):
+    def reference_generate(self, x_ref, *, generator=None, eps=None,
+                           eps1=None):
         if x_ref.shape[0] != self.manifest["ref_batch"]:
             raise ValueError(f"this bundle serves batches of "
                              f"{self.manifest['ref_batch']}, got "
                              f"{x_ref.shape[0]}")
         return self._reference_generate(self._prep_x(x_ref),
-                                        generator=generator, eps=eps)
+                                        generator=generator, eps=eps,
+                                        eps1=eps1)
 
     def score_nll(self, x, *, generator=None, eps=None):
         """Mean + per-point IWAE NLL; loops fixed-size chunks, padding the
-        tail (padded rows are scored and discarded). ``eps``: one noise
-        tensor per chunk, (rounds, chunk*r, Dz)."""
+        tail (padded rows are scored and discarded). ``eps``: one chunk's
+        noise per chunk, as make_iwae_fn's chunk_nll takes it."""
         chunk = self.manifest["score_chunk"]
         x = self._prep_x(x)
         outs = []

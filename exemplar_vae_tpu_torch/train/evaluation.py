@@ -4,8 +4,10 @@
 Protocol: test NLL = -[logsumexp_s (log p(x|z_s) + log p(z_s) - log q(z_s|x))
 - log S]; at eval the exemplar prior uses the full bank with no LOO mask,
 encoded once. Chunks are (t test points) x (r samples) per round with an
-online-LSE carry over rounds, as in the JAX package. The generic path
-(force_generic, the 2-level models) waits for the HVAE slice.
+online-LSE carry over rounds, as in the JAX package. The encode-once fast
+path runs what depends on x alone (q(z|x); for the two-level models q(z2|x)
+and the x-side features of q(z1|x,z2)) once per chunk; the generic path
+(``force_generic``) runs the whole forward per round, on the same noise.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models.base import (reconstruction_log_lik,
                                                 reparameterize)
+from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
 from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
@@ -39,7 +42,7 @@ def as_tensor(x, device, dtype=None):
 def make_eval_bank_fn(model, cfg: Config):
     """Encode the full exemplar bank once for evaluation (no gradient)."""
 
-    def pre(xc):
+    def pre(xc, u=None):
         return preprocess_batch(xc, input_type=cfg.input_type,
                                 dynamic_binarization=cfg.dynamic_binarization,
                                 train=False)
@@ -104,45 +107,81 @@ def make_elbo_eval_fn(model, cfg: Config):
     return evaluate
 
 
-def make_iwae_fn(model, cfg: Config):
-    """Importance-weighted NLL, S samples per point, for the single-level
-    VAE with the encode-once fast path: q(z|x) runs once per chunk and its
-    stats are repeated to the t*r rows of each round."""
-    if cfg.model_name.lower() != "vae":
-        raise NotImplementedError(
-            f"IWAE for model_name={cfg.model_name!r} (the generic path) comes "
-            f"with the HVAE slice (ROADMAP.md, Queue 1)")
+def _eps_at(eps, i):
+    """Round ``i`` of injected IWAE noise: a tensor, or a two-level pair."""
+    if eps is None:
+        return None
+    if isinstance(eps, (tuple, list)):
+        return tuple(e[i] for e in eps)
+    return eps[i]
+
+
+def make_iwae_fn(model, cfg: Config, force_generic: bool = False):
+    """Importance-weighted NLL, S samples per point. ``force_generic``
+    turns the encode-once fast path off (tests pin the two against each
+    other); both draw z2's noise, then z1's, per round."""
+    two_level = isinstance(model, TwoLevelMLPCore)
+
+    def round_terms(x_rep, enc, bank, e, generator):
+        """(t*r,) log importance weights of one round."""
+        if enc is None:                                  # generic
+            re, kl, _ = elbo_terms(model, x_rep, cfg, bank=bank, train=False,
+                                   eps=e, generator=generator)
+            return re - kl
+        if not two_level:
+            mu_rep, lv_rep = enc
+            z = reparameterize(mu_rep, lv_rep, eps=e, generator=generator)
+            x_mean, x_logvar = model.decode(z)
+            re = reconstruction_log_lik(x_rep, x_mean, x_logvar,
+                                        cfg.input_type)
+            log_q = log_normal_diag(z, mu_rep, lv_rep)
+            return re - (log_q - eval_log_p_top(model, z, cfg, bank))
+        mu_rep, lv_rep, hx_rep = enc
+        e2, e1 = (None, None) if e is None else e
+        z2 = reparameterize(mu_rep, lv_rep, eps=e2, generator=generator)
+        q1_mean, q1_logvar = model.q_z1_from_cache(hx_rep, z2)
+        z1 = reparameterize(q1_mean, q1_logvar, eps=e1, generator=generator)
+        p1_mean, p1_logvar = model.p_z1(z2)
+        extra_kl = (log_normal_diag(z1, q1_mean, q1_logvar)
+                    - log_normal_diag(z1, p1_mean, p1_logvar))
+        x_mean, x_logvar = model.decode(z1, z2)
+        re = reconstruction_log_lik(x_rep, x_mean, x_logvar, cfg.input_type)
+        log_q = log_normal_diag(z2, mu_rep, lv_rep)
+        return re - (log_q - eval_log_p_top(model, z2, cfg, bank) + extra_kl)
 
     @torch.no_grad()
     def chunk_nll(x_chunk_raw, bank, rounds: int, r: int, *, generator=None,
                   eps=None):
-        """(t,) NLL of one chunk. ``eps`` injects the per-round noise,
-        (rounds, t*r, Dz); else it is drawn from ``generator``."""
+        """(t,) NLL of one chunk. ``eps`` injects the per-round noise:
+        (rounds, t*r, Dz), or for the two-level models the pair
+        ((rounds, t*r, z2), (rounds, t*r, z1)); else it is drawn from
+        ``generator``."""
         dev = model_device(model)
         x = preprocess_batch(as_tensor(x_chunk_raw, dev),
                              input_type=cfg.input_type,
                              dynamic_binarization=cfg.dynamic_binarization,
                              train=False)
         t = x.shape[0]
+        if eps is not None:
+            want = ([(rounds, t * r, cfg.z2_size), (rounds, t * r, cfg.z1_size)]
+                    if two_level else [(rounds, t * r, cfg.z1_size)])
+            got = [tuple(e.shape) for e in (eps if two_level else [eps])]
+            if got != want:
+                raise ValueError(f"eps must be {want}, got {got}")
         x_rep = torch.repeat_interleave(x, r, dim=0)
-        q_mean, q_logvar = model.encode_top(x)
-        mu_rep = torch.repeat_interleave(q_mean, r, dim=0)
-        lv_rep = torch.repeat_interleave(q_logvar, r, dim=0)
-        if eps is not None and tuple(eps.shape) != (rounds,) + mu_rep.shape:
-            raise ValueError(f"eps must be {(rounds,) + tuple(mu_rep.shape)}, "
-                             f"got {tuple(eps.shape)}")
+        enc = None
+        if not force_generic:
+            q_mean, q_logvar = model.encode_top(x)
+            enc = (torch.repeat_interleave(q_mean, r, dim=0),
+                   torch.repeat_interleave(q_logvar, r, dim=0))
+            if two_level:
+                enc += (torch.repeat_interleave(model.q_z1_cache(x), r,
+                                                dim=0),)
         m = torch.full((t,), -1e30, dtype=torch.float32, device=dev)
         s = torch.zeros((t,), dtype=torch.float32, device=dev)
         for i in range(rounds):
-            z = reparameterize(mu_rep, lv_rep,
-                               eps=None if eps is None else eps[i],
-                               generator=generator)
-            x_mean, x_logvar = model.decode(z)
-            re = reconstruction_log_lik(x_rep, x_mean, x_logvar,
-                                        cfg.input_type)
-            log_q = log_normal_diag(z, mu_rep, lv_rep)
-            log_p = eval_log_p_top(model, z, cfg, bank)
-            a = (re - (log_q - log_p)).reshape(t, r)
+            a = round_terms(x_rep, enc, bank, _eps_at(eps, i),
+                            generator).reshape(t, r)
             m_new = torch.maximum(m, torch.amax(a, dim=1))
             s = s * torch.exp(m - m_new) + torch.sum(
                 torch.exp(a - m_new[:, None]), dim=1)

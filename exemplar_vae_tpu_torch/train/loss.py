@@ -6,8 +6,9 @@ Exemplar-prior support, by mode:
   train + exact   - re-encode the whole exemplar bank through the current
                     encoder with gradients (chunked, optionally recomputed
                     in the backward), LOO mask, denominator N-1
-  train + approx  - kNN over a stale cache: the approximate-prior slice
-                    (ROADMAP.md, Queue 1, item 8)
+  train + approx  - kNN over the stale cache means, then a gather and a
+                    fresh re-encode of each point's K neighbours with
+                    gradients (per-row support, or the batch union)
   eval            - precomputed full-bank means, no LOO, denominator N
 
 Noise: the reparameterization draw is injected (``eps``) or drawn from
@@ -20,11 +21,13 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models.base import reconstruction_log_lik
 from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
-from exemplar_vae_tpu_torch.ops.knn import encode_bank_with_grad
+from exemplar_vae_tpu_torch.ops.knn import (dedup_valid_mask,
+                                            encode_bank_with_grad, knn_indices)
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
 
 _SHARDED = ("the sharded exemplar prior comes with bank sharding over "
@@ -37,7 +40,8 @@ class Bank(NamedTuple):
     images: preprocessed exemplar inputs (N, H, W, C) - None once encoded.
     data_idx: (N,) int32 global dataset indices (LOO addressing).
     valid: (N,) bool - False rows are padding.
-    cache_means: (N, Dz) precomputed exact means (eval).
+    cache_means: (N, Dz) - the stale cache (approximate training) or the
+      precomputed exact means (eval); None in exact training.
     n_effective: int - true exemplar count N (mixture denominator).
     """
     images: Any
@@ -48,19 +52,30 @@ class Bank(NamedTuple):
 
 
 def bank_pre_fn(cfg: Config, generator=None):
-    """Per-chunk preprocessing of a raw (uint8) bank; float banks are
-    preprocessed once per epoch instead. Stochastic only under
-    ``cfg.bank_stochastic_preprocess``: by default the bank is preprocessed
-    deterministically everywhere, and only the training batch gets fresh
-    draws."""
+    """Per-chunk preprocessing ``pre(xc, u=None)`` of a raw (uint8) bank;
+    float banks are preprocessed once per epoch instead. Stochastic only
+    under ``cfg.bank_stochastic_preprocess``: by default the bank is
+    preprocessed deterministically everywhere, and only the training batch
+    gets fresh draws. ``u`` injects the uniforms, else they come from
+    ``generator``."""
 
-    def pre(xc):
+    def pre(xc, u=None):
         return preprocess_batch(xc, input_type=cfg.input_type,
                                 dynamic_binarization=cfg.dynamic_binarization,
                                 train=cfg.bank_stochastic_preprocess,
-                                generator=generator)
+                                generator=generator, u=u)
 
     return pre
+
+
+def bank_draw_fn(cfg: Config, generator=None):
+    """``draw(xc) -> u``: the uniforms that bank_pre_fn's stochastic
+    preprocessing of the raw chunk ``xc`` consumes; None when the bank is
+    preprocessed deterministically."""
+    if not cfg.bank_stochastic_preprocess:
+        return None
+    return lambda xc: torch.rand(xc.shape, generator=generator,
+                                 device=xc.device)
 
 
 def bank_log_denom(cfg: Config, bank: Bank, train: bool) -> float:
@@ -71,35 +86,62 @@ def bank_log_denom(cfg: Config, bank: Bank, train: bool) -> float:
     return math.log(n)
 
 
+def _approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
+                      generator=None):
+    """kNN over the stale cache, then a fresh re-encode of each point's K
+    neighbours with gradients; per-row or batch-union support."""
+    idx = knn_indices(out.q_mean, bank.cache_means, cfg.approximate_k,
+                      valid=bank.valid)                        # (B, K)
+    flat_idx = idx.reshape(-1)
+    # gather the B*K rows from a flat 2-D view of the bank
+    bank2d = bank.images.reshape(bank.images.shape[0], -1)
+    flat = bank2d.index_select(0, flat_idx).reshape(
+        (-1,) + tuple(bank.images.shape[1:]))
+    if flat.dtype == torch.uint8:
+        flat = bank_pre_fn(cfg, generator)(flat)
+    if cfg.approx_remat:
+        means = checkpoint(model.encode_top_mean, flat, use_reentrant=False)
+    else:
+        means = model.encode_top_mean(flat)
+    if cfg.approximate_support == "batch_union":
+        # every point's mixture runs over all B*K selected exemplars, repeats
+        # masked so that each unique exemplar counts once. The scan, not the
+        # kernel: the support is only B*K columns, as in the JAX package
+        return model.log_p_z_top(
+            out.z_top, bank_means=means, data_idx=loo_idx,
+            exemplar_idx=bank.data_idx[flat_idx],
+            valid=dedup_valid_mask(flat_idx), log_denom=log_denom,
+            impl="scan", block_n=cfg.prior_block_n)
+    return model.log_p_z_top(
+        out.z_top, bank_means=means.reshape(idx.shape + (means.shape[-1],)),
+        data_idx=loo_idx, exemplar_idx=bank.data_idx[idx],
+        log_denom=log_denom)
+
+
 def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
                             train: bool, *, generator=None,
                             sharded_exact_fn=None, sharded_approx_fn=None):
-    """log p(z_top | exemplar bank) for the exact-train and eval modes."""
+    """log p(z_top | exemplar bank) for the three support modes."""
     if sharded_exact_fn is not None or sharded_approx_fn is not None:
         raise NotImplementedError(_SHARDED)
     if not train:
         return eval_log_p_top(model, out.z_top, cfg, bank)
+    log_denom = bank_log_denom(cfg, bank, True)
+    loo_idx = data_idx if cfg.loo_mask_enabled else None
     if cfg.approximate_prior:
-        raise NotImplementedError(
-            "the approximate (kNN) exemplar prior comes with the "
-            "approximate-prior slice (ROADMAP.md, Queue 1, item 8)")
-    pre = None
+        return _approx_log_p_top(model, out, cfg, bank, loo_idx, log_denom,
+                                 generator)
+    pre = draw = None
     if bank.images.dtype == torch.uint8:
-        if cfg.bank_stochastic_preprocess and cfg.exact_remat:
-            # the recompute would draw the chunk's noise again
-            raise NotImplementedError(
-                "stochastic preprocessing of a raw uint8 bank under "
-                "exact_remat comes with the ConvHVAE slice (ROADMAP.md, "
-                "Queue 1, item 9)")
-        pre = bank_pre_fn(cfg, generator=generator)
+        pre = bank_pre_fn(cfg, generator)
+        draw = bank_draw_fn(cfg, generator)
     means = encode_bank_with_grad(model, bank.images,
                                   chunk=cfg.exact_reencode_chunk,
-                                  remat=cfg.exact_remat, pre_fn=pre)
+                                  remat=cfg.exact_remat, pre_fn=pre,
+                                  draw_fn=draw)
     return model.log_p_z_top(
-        out.z_top, bank_means=means,
-        data_idx=data_idx if cfg.loo_mask_enabled else None,
-        exemplar_idx=bank.data_idx, valid=bank.valid,
-        log_denom=bank_log_denom(cfg, bank, True),
+        out.z_top, bank_means=means, data_idx=loo_idx,
+        exemplar_idx=bank.data_idx, valid=bank.valid, log_denom=log_denom,
         impl="pallas" if cfg.use_pallas_prior else "scan",
         block_n=cfg.prior_block_n)
 

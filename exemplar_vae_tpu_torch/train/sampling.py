@@ -6,8 +6,9 @@ z ~ N(mu_phi(x_n), sigma^2 I); x_hat = decode(z). Exemplar-conditioned
 generation uses a chosen exemplar instead of a sampled one.
 
 Draws come in the JAX key-split order: the exemplar (or pseudo-input) index
-first, then the latent noise. Either can be injected (``idx``, ``eps``) so
-that tests replay JAX's draws; otherwise they come from ``generator``.
+first, then the top latent's noise, then (two-level models) the noise of z1
+~ p(z1|z2). Each can be injected (``idx``, ``eps``, ``eps1``) so that tests
+replay JAX's draws; otherwise they come from ``generator``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def draw_normal(eps, shape, generator, device):
 
 @torch.no_grad()
 def generate_x(model, cfg: Config, n: int, bank_images_raw=None,
-               n_valid: int = None, *, generator=None, idx=None, eps=None):
+               n_valid: int = None, *, generator=None, idx=None, eps=None,
+               eps1=None):
     """Unconditional samples: (n, H, W, C) decoder means. ``n_valid``
     bounds exemplar sampling to the real (non-padding) bank rows."""
     dev = model_device(model)
@@ -65,13 +67,13 @@ def generate_x(model, cfg: Config, n: int, bank_images_raw=None,
         log_var = clamped_prior_log_var(model, cfg)
         z = mu + torch.exp(0.5 * log_var) * draw_normal(eps, mu.shape,
                                                         generator, dev)
-    return model.generate_from_top(z)
+    return model.generate_from_top(z, eps=eps1, generator=generator)
 
 
 @torch.no_grad()
 def reference_based_generation_x(model, cfg: Config, x_ref_raw,
                                  n_per_ref: int = 1, *, generator=None,
-                                 eps=None):
+                                 eps=None, eps1=None):
     """Samples conditioned on given exemplars x_ref. Returns
     (B * n_per_ref, H, W, C)."""
     dev = model_device(model)
@@ -83,7 +85,7 @@ def reference_based_generation_x(model, cfg: Config, x_ref_raw,
                else torch.zeros((), device=dev))
     z = mu + torch.exp(0.5 * log_var) * draw_normal(eps, mu.shape, generator,
                                                     dev)
-    return model.generate_from_top(z)
+    return model.generate_from_top(z, eps=eps1, generator=generator)
 
 
 def _top_dim(cfg: Config) -> int:

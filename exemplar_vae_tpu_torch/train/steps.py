@@ -23,8 +23,9 @@ import torch
 from torch import nn
 
 from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
-from exemplar_vae_tpu_torch.train.loss import Bank, batch_loss
+from exemplar_vae_tpu_torch.train.loss import Bank, bank_pre_fn, batch_loss
 from exemplar_vae_tpu_torch.train.optimizer import Adam, make_optimizer
 
 
@@ -112,3 +113,27 @@ def make_epoch_fn(cfg: Config):
                        for k in auxs[0]}
 
     return epoch_fn
+
+
+def make_cache_refresh(model, cfg: Config):
+    """The approximate prior's per-epoch cache refresh: ``refresh(
+    bank_images_raw, generator=None) -> (N, Dz)`` encodes the whole bank
+    with the current params and no gradient, in chunks of
+    cfg.exact_reencode_chunk (0: one encode), so the cache lags the encoder
+    by up to one epoch. The bank is preprocessed as the train step's bank is
+    (deterministically unless cfg.bank_stochastic_preprocess; a raw uint8
+    bank per chunk)."""
+
+    @torch.no_grad()
+    def refresh(bank_images_raw, generator=None):
+        if bank_images_raw.dtype == torch.uint8:
+            return encode_bank(model, bank_images_raw,
+                               chunk=cfg.exact_reencode_chunk,
+                               pre_fn=bank_pre_fn(cfg, generator))
+        imgs = preprocess_batch(bank_images_raw, input_type=cfg.input_type,
+                                dynamic_binarization=cfg.dynamic_binarization,
+                                train=cfg.bank_stochastic_preprocess,
+                                generator=generator)
+        return encode_bank(model, imgs, chunk=cfg.exact_reencode_chunk)
+
+    return refresh

@@ -35,7 +35,10 @@ from exemplar_vae_tpu_torch.train.evaluation import (make_elbo_eval_fn,
                                                      make_eval_bank_fn,
                                                      make_iwae_fn)
 from exemplar_vae_tpu_torch.train.loss import Bank
-from exemplar_vae_tpu_torch.train.steps import init_train_state, make_epoch_fn
+from exemplar_vae_tpu_torch.train.sampling import _top_dim
+from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                make_cache_refresh,
+                                                make_epoch_fn)
 
 # offsets of cfg.seed for the evaluation generators (the fold-in constants
 # of the JAX trainer's evaluation keys)
@@ -43,8 +46,6 @@ VAL_SEED_OFFSET = 1_000_003
 TEST_SEED_OFFSET = 999_983
 
 _LATER = {
-    "approximate_prior": "the approximate-prior slice (ROADMAP.md, Queue 1, "
-                         "item 8)",
     "resume": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
     "eval_only": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
     "checkpoint_every": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
@@ -96,15 +97,22 @@ class Experiment:
                 f"batch_size or raise training_set_size.")
 
         # --- exemplar bank: the first number_components training points,
-        # a view of train_x (no second copy) ---
+        # a view of train_x (no second copy); the approximate prior's cache
+        # starts at zero and is refreshed at the start of every epoch ---
         self.bank = None
+        self.cache_refresh = None
         if cfg.prior == "exemplar_prior":
             n_ex = min(cfg.number_components, self.n_train)
+            cache = None
+            if cfg.approximate_prior:
+                cache = torch.zeros((n_ex, _top_dim(cfg)),
+                                    dtype=torch.float32, device=dev)
+                self.cache_refresh = make_cache_refresh(self.model, cfg)
             self.bank = Bank(
                 images=self.train_x[:n_ex],
                 data_idx=torch.arange(n_ex, dtype=torch.int32, device=dev),
                 valid=torch.ones(n_ex, dtype=torch.bool, device=dev),
-                cache_means=None, n_effective=n_ex)
+                cache_means=cache, n_effective=n_ex)
         if cfg.prior == "vampprior" and cfg.use_training_data_init:
             # the pseudo-inputs start as the first C training points
             c = cfg.number_components
@@ -169,6 +177,10 @@ class Experiment:
         self.epoch += 1
         cfg = self.cfg
         beta = beta_schedule(self.epoch, cfg.warmup)
+        if self.cache_refresh is not None:
+            # the epoch's kNN cache, encoded with the params it starts from
+            self.bank = self.bank._replace(cache_means=self.cache_refresh(
+                self.bank.images, generator=self.gen))
         perm = self.epoch_perm(self.steps_per_epoch, cfg.batch_size)
         t0 = time.perf_counter()
         self.state, metrics = self.epoch_fn(

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-versions on the card, the prior's gradients through the kernel, and the
-serving path through them at a small size.
+versions on the card, the prior's gradients through the kernel, the
+serving path through them at a small size, and the two-level models and
+the approximate prior on the card against the CPU.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it also runs where JAX is absent (tests/conftest.py imports JAX, hence
@@ -173,3 +174,86 @@ def test_small_serving_path_runs_the_kernel(dev):
                             eb.valid, eps=eps)
         assert tpl.pairwise_lse.launches == before + (2 if kernel else 0)
     torch.testing.assert_close(nll[True], nll[False], rtol=RTOL, atol=ATOL)
+
+
+def _two_level(dev, name, seed=0):
+    """A small-hidden two-level model at the Config 3 conv widths (28x28
+    gray, the default spec), on the CPU and a copy on ``dev``."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    cfg = Config(model_name=name, hidden_size=32, z1_size=8, z2_size=8,
+                 input_type="gray", dynamic_binarization=False,
+                 number_components=300, approximate_prior=True,
+                 approximate_k=10, prior_block_n=128, exact_reencode_chunk=0)
+    cpu = create_model(cfg, device="cpu", seed=seed)
+    card = create_model(cfg, device=dev, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hvae_2level", "convhvae_2level"])
+def test_two_level_fp32_forward_on_card_matches_cpu(dev, name):
+    """fp32 on the card (cuDNN convs and cuBLAS GEMMs with TF32 off)
+    against the same model on the CPU, same input and noise: rtol 1e-4."""
+    _, cpu, card = _two_level(dev, name)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((16, 28, 28, 1), generator=g)
+    eps = (torch.randn((16, 8), generator=g), torch.randn((16, 8), generator=g))
+    with torch.no_grad():
+        want = cpu(x, eps=eps)
+        got = card(x.to(dev), eps=tuple(e.to(dev) for e in eps))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [(5, 30, 7), (100, 50_000, 10)])
+def test_knn_indices_on_card_equal_cpu_on_ties(dev, b, n, k):
+    """Integer data: every distance is exact, repeated rows tie exactly,
+    and the card returns the CPU's lowest-index-first order."""
+    from exemplar_vae_tpu_torch.ops.knn import knn_indices
+    rng = np.random.default_rng(0)
+    base = rng.integers(-3, 4, (-(-n // 3), 6)).astype(np.float32)
+    cache = np.concatenate([base] * 3)[:n]
+    q = base[rng.integers(0, base.shape[0], b)] + rng.integers(-1, 2, (b, 6))
+    valid = rng.random(n) >= 0.1
+    q, cache = torch.from_numpy(q.astype(np.float32)), torch.from_numpy(cache)
+    valid = torch.from_numpy(valid)
+    want = knn_indices(q, cache, k, valid=valid)
+    got = knn_indices(q.to(dev), cache.to(dev), k, valid=valid.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", ["per_row", "batch_union"])
+def test_approx_train_step_on_card(dev, support):
+    """One approximate ConvHVAE step on the card over a 300-row bank and a
+    stale cache: finite loss and gradients, no kernel launch (the per-row
+    prior is an LSE over K), the loss within 1e-4 of the CPU's."""
+    from exemplar_vae_tpu_torch.train import steps
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    cfg, cpu, card = _two_level(dev, "convhvae_2level")
+    cfg = cfg.replace(approximate_support=support)
+    g = torch.Generator().manual_seed(1)
+    bank_x = torch.rand((300, 28, 28, 1), generator=g)
+    rows = torch.arange(0, 300, 30)
+    eps = (torch.randn((10, 8), generator=g), torch.randn((10, 8), generator=g))
+    losses = []
+    for model, d in ((cpu, torch.device("cpu")), (card, dev)):
+        cache = steps.make_cache_refresh(model, cfg)(bank_x.to(d))
+        bank = Bank(images=bank_x.to(d),
+                    data_idx=torch.arange(300, dtype=torch.int32, device=d),
+                    valid=torch.ones(300, dtype=torch.bool, device=d),
+                    cache_means=cache, n_effective=300)
+        before = tpl.pairwise_lse.launches
+        _, aux = steps.make_train_step(cfg)(
+            steps.init_train_state(model, cfg), bank_x[rows].to(d),
+            rows.to(torch.int32).to(d), bank, 1.0,
+            eps=tuple(e.to(d) for e in eps))
+        assert tpl.pairwise_lse.launches == before
+        for name, p in model.named_parameters():
+            assert bool(torch.isfinite(p.grad).all()), name
+        losses.append(float(aux["loss"]))
+    assert np.isfinite(losses[1])
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)

@@ -9,7 +9,8 @@ the Experiment, on the CPU at a small size.
 * The Experiment mirrors tests/test_training.py: beta schedule, log
   denominator, ELBO improvement, metrics files, early stopping, same-seed
   reproduction, validation determinism, a batch larger than the dataset
-  failing loudly; the options that later slices bring raise and name them.
+  failing loudly; the options and models that later slices bring raise and
+  name them.
 """
 
 import dataclasses
@@ -284,7 +285,7 @@ def test_vamp_use_training_data_init(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(approximate_prior=True), "item 8"),
+    (dict(model_name="pixelhvae_2level"), "item 12"),
     (dict(resume=True), "item 6"),
     (dict(eval_only=True), "item 6"),
     (dict(checkpoint_every=1), "item 6"),
