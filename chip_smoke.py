@@ -9,11 +9,13 @@ Phases; any failure exits non-zero before the result lines:
 1. a CUDA card is present, and importing the port loads no JAX;
 2. every kernel is built from the sources in the checkout (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, fp32 and
-   bf16 inputs, at the serving shape (B = N = 50 000, D = 40, no LOO; also
-   Config 3's IWAE shape), the train shape (B = 100, N = 50 000, LOO) and
-   the validation shape (B = 100, no LOO), with ~1% invalid exemplars
-   and an N that no tile divides; kernel, plain, library-yardstick and
-   bound times (the library yardstick is freed before phase 4);
+   bf16 inputs, at every shape the paths give it (KERNEL_SHAPES): serving
+   (B = N = 50 000, D = 40, no LOO; also Config 3's IWAE shape), train
+   (B = 100, N = 50 000, LOO), validation (B = 100 and its tail of 56, no
+   LOO) and the CLI runs' IWAE chunks (B = 800 and its tail of 448, no
+   LOO), with ~1% invalid exemplars and an N that no tile divides; kernel,
+   plain, library-yardstick and bound times (the library yardstick is
+   freed before phase 4);
 4. the serving path of BASELINE Config 1 at full width: a seeded VAE
    (784-300-300-40, fp32), a 50 000-image synthetic binarized bank encoded
    by make_eval_bank_fn, 3 score_nll requests of 100 points at S = 5000,
@@ -58,7 +60,29 @@ Phases; any failure exits non-zero before the result lines:
    peak memory, and its device time by group under the profiler; (f) the
    CLI trains one epoch of it, finite metrics, and the
    exact kernel launch count computed from its config;
-7. the kernels line, the card's name and power limit, and the ok line.
+7. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
+   at Config 1's full width: the VAE 784-300-300-40 on dynamic_mnist (with
+   no IDX files on disk its labelled synthetic stand-in, 50 000 training
+   images), the exact prior over N = 50 000, batch 100, the CLI's defaults
+   otherwise (fp32, bank chunks of 8192 with recompute). Cut: validation
+   and test to 256 images, S = MB = 8. (a) A child process runs the CLI
+   for one epoch with --checkpoint_every 1: ckpt_last, ckpt_final,
+   results.json with no artifact_error, and the five PNG grids decoding to
+   their sizes; (b) a second child resumes it (--resume --epochs 2): it
+   prints "resumed from epoch 1" and appends only epoch 2; (c) in this
+   process the run is loaded, saved and restored into a fresh Experiment:
+   params, moments, count, step, best params and cache bitwise equal, one
+   train step from each with the same noise gives the same loss (rtol
+   1e-6), save and restore times and the size on disk; three augmented
+   classifier steps make no host synchronization; a 10-step call of the
+   CLI-default train step under torch.profiler; (d) --eval_only in this
+   process reproduces results.json's test_nll (rtol 1e-6) with the kernel
+   launches its config implies; (e) a child runs python -m
+   exemplar_vae_tpu_torch.classify_mnist --classifier_epochs 2 --pi 0.5
+   (784-512-512-10 on all 50 000 labels): both test errors finite and
+   below 0.9, classifier_results.json written, seconds per classifier
+   epoch and augmented rows/s; each child's wall time;
+8. the kernels line, the card's name and power limit, and the ok line.
 """
 
 import contextlib
@@ -86,6 +110,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS, TF32_OPS, BF16_OPS = 67e12, 495e12, 989e12
 SFU_EXP_PER_CLOCK = 16
 N_BANK, D = 50_000, 40
+# (name, B, LOO) of every pairwise_lse call the paths below make: serving
+# and Config 3's IWAE (B = points x MB = N), the train step, validation
+# batches of test_batch_size = 100 and their tail (256 images: 56), and the
+# CLI runs' IWAE chunks (test_batch_size x MB = 800 rows at S = MB = 8) and
+# their tail (256 test images: 56 x 8 = 448)
+KERNEL_SHAPES = (("serving", 50_000, False), ("train", 100, True),
+                 ("validation", 100, False), ("validation_tail", 56, False),
+                 ("iwae_chunk", 800, False), ("iwae_tail", 448, False))
 # pairwise_lse times of the SIMT fp32 kernel that the tensor-core design
 # replaced (PERF.md, same script, H100 80GB HBM3 at 700 W), printed beside
 # this run's for reference only
@@ -101,6 +133,17 @@ STEP_LOSS_RTOL, GRAD_REL = 1e-5, 1e-4
 # Config 3: validation images, IWAE points per request, B*K re-encode calls
 C3_VAL, C3_T, C3_REENCODE = 10_000, 100, 5
 C3_S, C3_MB = 5000, 500                  # the IWAE protocol (Config defaults)
+# Config 5: validation/test images, classifier epochs, replacement
+# probability; a resumed or reloaded state is bitwise the saved one, so its
+# step's loss and the eval-only NLL agree to float rounding at most
+C5_EVAL, C5_CLF_EPOCHS, C5_PI = 256, 2, 0.5
+C5_RTOL = 1e-6
+# the artifacts: 5x5 grids of 28x28 images with 2-pixel separators
+C5_GRIDS = ("reconstructions.png", "real.png", "generations.png",
+            "exemplar_neighborhoods.png", "latent_knn_retrieval.png")
+C5_GRID_SHAPE = (5 * 30 + 2, 5 * 30 + 2, 1)
+CHILD_TIMEOUT_S = 600
+ROOT = Path(__file__).resolve().parent
 
 
 def check(cond, msg):
@@ -241,8 +284,7 @@ def kernel_phase(pl):
     log(f"[kernel] bound inputs: {sm_count} SMs, max SM clock "
         f"{sm_hz / 1e6:.0f} MHz")
     results = {}
-    for shape, b, loo in (("serving", 50_000, False), ("train", 100, True),
-                          ("validation", 100, False)):
+    for shape, b, loo in KERNEL_SHAPES:
         own = torch.randint(0, N_BANK, (b,), generator=g, device=dev)
         z = means[own] + 0.7 * torch.randn((b, D), generator=g, device=dev)
         data_idx = own.to(torch.int32) if loo else None
@@ -463,6 +505,7 @@ def training_phase(pl, snap_dir):
                                                reference_arg_parser)
     from exemplar_vae_tpu_torch.main import main as cli_main
     from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
     from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                     make_train_step)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
@@ -487,12 +530,15 @@ def training_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # one region of the whole epoch call
+    timer = StepTimer(images_per_step=TRAIN_STEPS * TRAIN_B,
+                      distances_per_step=TRAIN_STEPS * TRAIN_B * N_BANK)
+
     # ---- the main path: counts 0 just before, read just after ----
     pl.pairwise_lse.launches = 0
-    t0 = time.perf_counter()
-    exp.state, metrics = run(perm)
-    loss = float(metrics["loss"])           # host read: ends the timed call
-    dt = time.perf_counter() - t0
+    with timer:
+        exp.state, metrics = run(perm)
+        loss = fetch_sync(metrics["loss"])  # host read: ends the timed call
     launches = pl.pairwise_lse.launches
     # ---- end of the main path ----
 
@@ -500,8 +546,9 @@ def training_phase(pl, snap_dir):
     check(launches == TRAIN_STEPS, f"pairwise_lse launched {launches} times "
           f"in {TRAIN_STEPS} training steps")
     check(math.isfinite(loss), f"training loss {loss}")
+    dt = timer.total_seconds
     ms_step = dt / TRAIN_STEPS * 1e3
-    ips = TRAIN_STEPS * TRAIN_B / dt
+    ips = timer.images_per_sec
     log(f"[train] Config 1 training at bench.py::measure_ours settings: VAE "
         f"784-{cfg.hidden_size}-{cfg.hidden_size}-{cfg.z1_size} bf16, exact "
         f"prior N={N_BANK} (LOO) through the kernel, batch {TRAIN_B}, bank "
@@ -509,7 +556,7 @@ def training_phase(pl, snap_dir):
         f"{setup_s:.2f} s")
     log(f"[train] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
         f"{ms_step:.4f} ms/step, {ips:.1f} images/s, "
-        f"{ips * N_BANK:.4g} exemplar distances/s; loss {loss:.4f}; "
+        f"{timer.distances_per_sec:.4g} exemplar distances/s; loss {loss:.4f}; "
         f"pairwise_lse launches {launches}; peak memory {peak_gb:.2f} GB")
 
     prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
@@ -804,6 +851,253 @@ def config3_phase(pl, snap_dir):
             "config3_iwae": iwae_launches, "config3_cli_epoch": cli_launches}
 
 
+def run_child(tag, module, argv):
+    """Run ``python -m module argv`` in a child process from the repository
+    root, its output logged under ``tag``; fails the phase on a non-zero
+    exit. Returns (stdout, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[{tag}] | {line}")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"{module} {' '.join(argv)} exited "
+          f"{proc.returncode}")
+    return proc.stdout, secs
+
+
+def _epoch_records(exp_dir):
+    return [r for r in (json.loads(line) for line in
+                        (exp_dir / "metrics.jsonl").read_text().splitlines())
+            if "epoch" in r]
+
+
+def _same_state(a, b):
+    """Names of the state entries in which Experiments a and b differ
+    (bitwise)."""
+    bad = []
+    sa, sb = a.state, b.state
+    for (name, p), q in zip(sa.model.named_parameters(),
+                            sb.model.parameters()):
+        if not torch.equal(p, q):
+            bad.append(name)
+        for k in ("m", "v"):
+            if not torch.equal(sa.opt.state[p][k], sb.opt.state[q][k]):
+                bad.append(f"{name}.{k}")
+        if not torch.equal(a.best_params[name], b.best_params[name]):
+            bad.append(f"best {name}")
+    ca, cb = a.bank.cache_means, b.bank.cache_means
+    if (ca is None) != (cb is None) or (ca is not None
+                                        and not torch.equal(ca, cb)):
+        bad.append("cache")
+    for attr in ("epoch", "best_val", "bad_epochs"):
+        if getattr(a, attr) != getattr(b, attr):
+            bad.append(attr)
+    if (sa.opt.count, sa.step) != (sb.opt.count, sb.step):
+        bad.append("count/step")
+    return bad
+
+
+def config5_phase(pl, snap_dir):
+    from exemplar_vae_tpu_torch.config import (config_from_args,
+                                               reference_arg_parser)
+    from exemplar_vae_tpu_torch.main import main as cli_main
+    from exemplar_vae_tpu_torch.train.augment import (MLPClassifier,
+                                                      load_experiment,
+                                                      make_augment_fn,
+                                                      make_classifier_step)
+    from exemplar_vae_tpu_torch.train.plots import read_png
+    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
+    from exemplar_vae_tpu_torch.train.steps import make_train_step
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+
+    data_dir = snap_dir / "c5_no_data"      # no IDX files: the stand-in
+    data_dir.mkdir()
+    base = ["--dataset_name", "dynamic_mnist", "--data_dir", str(data_dir),
+            "--training_set_size", str(N_BANK), "--number_components",
+            str(N_BANK), "--val_set_size", str(C5_EVAL), "--test_set_size",
+            str(C5_EVAL), "--S", "8", "--MB", "8", "--snapshot_dir",
+            str(snap_dir / "c5")]
+    c = config_from_args(reference_arg_parser().parse_args(base))
+    check(c.model_name == "vae" and c.hidden_size == 300 and c.z1_size == D
+          and c.batch_size == TRAIN_B and c.prior == "exemplar_prior"
+          and not c.approximate_prior and c.use_pallas_prior
+          and c.compute_dtype == "float32", "the CLI's defaults are not "
+          "BASELINE Config 1's widths")
+    exp_dir = snap_dir / "c5" / c.experiment_name()
+
+    # (a) the first run, one epoch, checkpointed
+    _, run_s = run_child("config5-run", "exemplar_vae_tpu_torch.main",
+                         base + ["--epochs", "1", "--checkpoint_every", "1"])
+    for tag in ("last", "final"):
+        meta = json.loads((exp_dir / f"ckpt_{tag}" / "meta.json").read_text())
+        check(meta["epoch"] == 1 and meta["backend"] == "npz",
+              f"ckpt_{tag} meta {meta}")
+    first = json.loads((exp_dir / "results.json").read_text())
+    check("artifact_error" not in first and math.isfinite(first["test_nll"]),
+          f"first run's results {first}")
+    for name in C5_GRIDS:
+        shape = read_png(str(exp_dir / name)).shape
+        check(shape == C5_GRID_SHAPE, f"{name} decodes to {shape}, not "
+              f"{C5_GRID_SHAPE}")
+    epochs_a = [r["epoch"] for r in _epoch_records(exp_dir)]
+
+    # (b) a second process resumes it
+    out, resume_s = run_child(
+        "config5-resume", "exemplar_vae_tpu_torch.main",
+        base + ["--epochs", "2", "--resume", "--checkpoint_every", "1"])
+    records = _epoch_records(exp_dir)
+    check("resumed from epoch 1" in out, "the resumed run did not print "
+          "'resumed from epoch 1'")
+    check(epochs_a == [1] and [r["epoch"] for r in records] == [1, 2],
+          f"metrics.jsonl epochs {epochs_a} then "
+          f"{[r['epoch'] for r in records]}, want [1] then [1, 2]")
+    resumed = json.loads((exp_dir / "results.json").read_text())
+    check(resumed["epochs_trained"] == 2 and "artifact_error" not in resumed
+          and math.isfinite(resumed["test_nll"]), f"resumed {resumed}")
+
+    # (c) save, then restore into a fresh Experiment, in this process
+    t0 = time.perf_counter()
+    exp = load_experiment(str(exp_dir))
+    load_s = time.perf_counter() - t0
+    save_s = wall_ms(lambda: exp.save_checkpoint("roundtrip")) / 1e3
+    ckpt = exp_dir / "ckpt_roundtrip"
+    size_mb = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e6
+    fresh = Experiment(exp.cfg, device="cuda", verbose=False,
+                       exp_dir=str(exp_dir))
+    ok = []
+    restore_s = wall_ms(
+        lambda: ok.append(fresh.restore_checkpoint("roundtrip"))) / 1e3
+    bad = _same_state(exp, fresh)
+    check(ok == [True] and not bad, f"round trip differs in {bad[:8]}")
+    check(fresh.model.q_layers_0.h_kernel.is_cuda
+          and all(v.is_cuda for st in fresh.state.opt.state.values()
+                  for v in st.values()), "restored tensors are not on the card")
+    g = torch.Generator("cuda").manual_seed(21)
+    rows = torch.randperm(exp.n_train, generator=g, device="cuda")[:TRAIN_B]
+    u = torch.rand((TRAIN_B, 28, 28, 1), generator=g, device="cuda")
+    eps = torch.randn((TRAIN_B, D), generator=g, device="cuda")
+    losses = []
+    # ---- the path's train steps: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    for e in (exp, fresh):
+        _, aux = make_train_step(e.cfg)(e.state, e.train_x[rows],
+                                        e.train_idx[rows], e.bank, 1.0, u=u,
+                                        eps=eps)
+        losses.append(float(aux["loss"]))
+    step_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    loss_diff = abs(losses[0] - losses[1])
+    check(step_launches == 2, f"two exact train steps launched the kernel "
+          f"{step_launches} times")
+    check(all(math.isfinite(v) for v in losses)
+          and loss_diff <= C5_RTOL * abs(losses[0]),
+          f"train step after the round trip: loss {losses[1]} vs {losses[0]}")
+    # the augmented classifier step makes no host synchronization
+    clf = MLPClassifier(784).to("cuda")
+    step = make_classifier_step(clf, torch.optim.Adam(clf.parameters(), 1e-3),
+                                exp.cfg, make_augment_fn(exp.model, exp.cfg),
+                                C5_PI)
+    xs = exp.train_x[:TRAIN_B]
+    ys = torch.from_numpy(exp.splits.train_labels[:TRAIN_B]).long().cuda()
+    step(xs, ys, generator=g)
+    aug_syncs = host_syncs(lambda: [step(xs, ys, generator=g)
+                                    for _ in range(3)])
+    check(not aug_syncs, f"the augmented classifier step synchronized the "
+          f"host: {aug_syncs[:1]}")
+    timer = StepTimer(images_per_step=50 * TRAIN_B)
+    torch.cuda.synchronize()
+    with timer:             # one region of 50 steps, ended by one host read
+        fetch_sync([step(xs, ys, generator=g) for _ in range(50)])
+    aug_step_ms = timer.seconds_per_step * 1e3 / 50
+    # where the CLI-default step's time goes (fp32, chunks with recompute)
+    run = lambda perm: exp.epoch_fn(  # noqa: E731
+        exp.state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,
+        generator=exp.gen)
+    prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
+    log_host(prof, "config5-profile", PROF_STEPS)
+    log_profile("config5-profile", PROF_STEPS, prof)
+    n_params = sum(p.numel() for p in exp.model.parameters())
+    del exp, fresh, clf, step, run, prof
+    torch.cuda.empty_cache()
+    log(f"[config5] BASELINE Config 5 at Config 1's width: VAE 784-"
+        f"{c.hidden_size}-{c.hidden_size}-{c.z1_size} ({n_params} params), "
+        f"dynamic_mnist -> labelled synthetic stand-in, {N_BANK} training "
+        f"images, exact prior N={N_BANK}, batch {c.batch_size}, fp32, "
+        f"val/test {C5_EVAL}, S = MB = 8")
+    log(f"[config5] checkpoint: save {save_s:.4f} s, restore into a fresh "
+        f"Experiment {restore_s:.4f} s, {size_mb:.3f} MB on disk "
+        f"(state.npz, best_params.npz, meta.json); load_experiment (data, "
+        f"model, restore) {load_s:.3f} s; round trip bitwise; one train step "
+        f"from each: loss {losses[0]:.6f} vs {losses[1]:.6f} (abs diff "
+        f"{loss_diff:.3e}, rtol {C5_RTOL}); pairwise_lse launches "
+        f"{step_launches}")
+    log(f"[config5] augmented classifier step (784-512-512-10, batch "
+        f"{TRAIN_B}, pi {C5_PI}): {aug_step_ms:.4f} ms/step (host clock, 50 "
+        f"steps), 0 host synchronizations in 3 steps")
+
+    # (d) eval only, in this process
+    out = io.StringIO()
+    # ---- the path's evaluation: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        again = cli_main(base + ["--eval_only"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    for line in out.getvalue().splitlines():
+        log(f"[config5-eval] | {line}")
+    # one launch per validation batch (B <= test_batch_size) and per IWAE
+    # chunk and round (B <= test_batch_size x MB)
+    val_batches = -(-c.val_set_size // c.test_batch_size)
+    iwae_calls = (-(-c.test_set_size // c.test_batch_size)
+                  * -(-c.S // min(c.MB, c.S)))
+    want = val_batches + iwae_calls
+    nll_diff = abs(again["test_nll"] - resumed["test_nll"])
+    check(eval_launches == want, f"--eval_only launched the kernel "
+          f"{eval_launches} times, not {want}")
+    check(nll_diff <= C5_RTOL * abs(resumed["test_nll"])
+          and "artifact_error" not in again,
+          f"--eval_only test_nll {again['test_nll']} vs results.json "
+          f"{resumed['test_nll']}")
+
+    # (e) the augmented classifier, in a child process
+    clf_argv = ["--vae_dir", str(exp_dir), "--classifier_epochs",
+                str(C5_CLF_EPOCHS), "--pi", str(C5_PI)]
+    out, clf_s = run_child("config5-classify",
+                           "exemplar_vae_tpu_torch.classify_mnist", clf_argv)
+    res = json.loads((exp_dir / "classifier_results.json").read_text())
+    check(res == json.loads(out.strip().splitlines()[-1]),
+          "classifier_results.json differs from the printed results")
+    for name in ("plain", "exemplar_augmented"):
+        err = res[name]["test_error"]
+        check(math.isfinite(err) and err < 0.9, f"{name} classifier test "
+              f"error {err} (chance 0.9)")
+    rows_per_epoch = (N_BANK // TRAIN_B) * TRAIN_B
+    aug_s = res["exemplar_augmented"]["train_seconds"]
+    log(f"[config5-classify] {C5_CLF_EPOCHS} epochs on {N_BANK} labels: "
+        f"plain {res['plain']['test_error']:.4f} test error, "
+        f"{res['plain']['train_seconds'] / C5_CLF_EPOCHS:.3f} s/epoch; "
+        f"augmented (pi {C5_PI}) {res['exemplar_augmented']['test_error']:.4f}"
+        f", {aug_s / C5_CLF_EPOCHS:.3f} s/epoch, "
+        f"{C5_CLF_EPOCHS * rows_per_epoch / aug_s:.1f} augmented rows/s "
+        f"(every row is sampled, pi of them kept); test set {C5_EVAL}")
+    log(f"[config5] wall time: first run {run_s:.2f} s, resume {resume_s:.2f}"
+        f" s (child processes); eval-only {eval_s:.2f} s (this process), "
+        f"test_nll {again['test_nll']:.6f} vs {resumed['test_nll']:.6f} "
+        f"(abs diff {nll_diff:.3e}), pairwise_lse launches {eval_launches} "
+        f"({val_batches} validation at B <= {c.test_batch_size}, "
+        f"{iwae_calls} IWAE at B <= {c.test_batch_size * c.MB}); classify "
+        f"{clf_s:.2f} s (child)")
+    return {"config5_train_steps": step_launches,
+            "config5_eval_only": eval_launches}
+
+
 def log_host(prof, tag, steps):
     """Kernel launches per step and the top host operators of a profiled
     call; returns the launches per step."""
@@ -913,6 +1207,7 @@ def main():
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = training_phase(pl, Path(snap))
         c3 = config3_phase(pl, Path(snap))
+        c5 = config5_phase(pl, Path(snap))
 
     main_v = kern[("serving", "float32")]
     entry = {
@@ -920,9 +1215,9 @@ def main():
         "source": "exemplar_vae_tpu_torch/csrc/pairwise_lse.cu",
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
         "launches": (launches + train_launches + c3["config3_validation"]
-                     + c3["config3_iwae"]),
+                     + c3["config3_iwae"] + sum(c5.values())),
         "launches_per_path": {"serving": launches, "training": train_launches,
-                              "cli_epoch": cli_launches, **c3},
+                              "cli_epoch": cli_launches, **c3, **c5},
         "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],

@@ -5,7 +5,14 @@
 
 It trains on the CUDA card; ``--no_cuda`` runs on the CPU. The flags are
 listed in exemplar_vae_tpu_torch/config.py. It prints the experiment
-directory, one line of metrics per epoch and, last, the results as JSON.
+directory, one line of metrics per epoch and, last, the results as JSON,
+and saves the final state to ``ckpt_final``.
+
+* ``--checkpoint_every K`` saves ``ckpt_last`` every K epochs;
+* ``--resume`` restores ``ckpt_last`` and trains on up to ``--epochs``
+  (it warns and starts afresh when there is none);
+* ``--eval_only`` restores ``ckpt_final`` (else ``ckpt_last``) and runs
+  the final evaluation and the artifacts, with no training.
 """
 
 from __future__ import annotations
@@ -21,10 +28,32 @@ def main(argv=None) -> dict:
     ns = reference_arg_parser().parse_args(argv)
     cfg = config_from_args(ns)
     exp = Experiment(cfg, device="cpu" if ns.no_cuda else "cuda")
+    if cfg.eval_only:
+        # the final checkpoint first: its best params gave the reported
+        # numbers
+        for tag in ("final", "last"):
+            if exp.restore_checkpoint(tag):
+                print(f"eval_only: restored ckpt_{tag} (epoch {exp.epoch})")
+                break
+        else:
+            raise SystemExit(
+                f"--eval_only: no restorable checkpoint (ckpt_final or "
+                f"ckpt_last) under {exp.exp_dir}")
+        print(f"experiment dir: {exp.exp_dir}")
+        results = exp.final_evaluation()
+        print(json.dumps(results))
+        return results
+    if cfg.resume:
+        if exp.restore_checkpoint():
+            print(f"resumed from epoch {exp.epoch}")
+        else:
+            print(f"WARNING: --resume given but no checkpoint found under "
+                  f"{exp.exp_dir}/ckpt_last; starting fresh")
     print(f"experiment dir: {exp.exp_dir}")
     print(f"dataset={exp.cfg.dataset_name} source={exp.splits.source} "
           f"n_train={exp.n_train} device={exp.device}")
     results = exp.run()
+    exp.save_checkpoint("final")
     print(json.dumps(results))
     return results
 

@@ -1,5 +1,5 @@
 """Generation (counterpart of exemplar_vae_tpu/train/sampling.py: generate_x,
-reference_based_generation_x).
+reference_based_generation_x, reconstruct_x, latent_neighbors).
 
 Generative process of the exemplar prior: n ~ Uniform(N);
 z ~ N(mu_phi(x_n), sigma^2 I); x_hat = decode(z). Exemplar-conditioned
@@ -17,6 +17,7 @@ import torch
 
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models.base import clamped_prior_log_var
+from exemplar_vae_tpu_torch.ops.knn import knn_indices
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
 from exemplar_vae_tpu_torch.train.evaluation import as_tensor, model_device
 
@@ -86,6 +87,28 @@ def reference_based_generation_x(model, cfg: Config, x_ref_raw,
     z = mu + torch.exp(0.5 * log_var) * draw_normal(eps, mu.shape, generator,
                                                     dev)
     return model.generate_from_top(z, eps=eps1, generator=generator)
+
+
+@torch.no_grad()
+def reconstruct_x(model, cfg: Config, x_raw, *, generator=None, eps=None):
+    """(preprocessed x, decoder means of one posterior sample of x). ``eps``
+    is the forward's noise: (B, Dz), or the pair (eps2, eps1) for the
+    two-level models."""
+    x = _prep(as_tensor(x_raw, model_device(model)), cfg)
+    return x, model(x, eps=eps, generator=generator).x_mean
+
+
+@torch.no_grad()
+def latent_neighbors(model, cfg: Config, x_query_raw, bank_images_raw,
+                     cache_means, k: int, *, valid=None):
+    """The ``k`` nearest exemplars of each query in encoder-mean space:
+    (indices (B, k), their bank images (B, k, H, W, C)). ``valid`` masks
+    padding rows of the cache, so they never show up as neighbours."""
+    dev = model_device(model)
+    q = model.encode_top_mean(_prep(as_tensor(x_query_raw, dev), cfg))
+    idx = knn_indices(q, as_tensor(cache_means, dev), k,
+                      valid=None if valid is None else as_tensor(valid, dev))
+    return idx, as_tensor(bank_images_raw, dev)[idx]
 
 
 def _top_dim(cfg: Config) -> int:

@@ -1,17 +1,24 @@
-"""The experiment loop (counterpart of exemplar_vae_tpu/train/trainer.py, one
-device, without checkpoints or visual artifacts).
+"""The experiment loop (counterpart of exemplar_vae_tpu/train/trainer.py, on
+one device).
 
 Per-epoch protocol: beta = min(1, epoch / warmup); one training pass over a
 fresh permutation; the validation ELBO; early stopping on the validation
 loss with patience ``early_stopping_epochs`` once beta has warmed up; the
 best-on-validation params kept as a CPU copy; abort on a non-finite loss;
-the final IWAE NLL on the test split with the best params. Metrics go to
+the final IWAE NLL on the test split with the best params, then the
+visual artifacts (image grids). Metrics go to
 ``<snapshot_dir>/<experiment_name>/metrics.jsonl`` beside ``config.json``
-and ``results.json``.
+and ``results.json``; ``checkpoint_every`` saves the full state to
+``ckpt_last`` (train/checkpoints.py), ``profile_epoch`` traces one epoch
+into ``profile/``, ``debug_nans`` runs the training steps under autograd's
+anomaly detection.
 
-Randomness: one ``torch.Generator`` on the device, seeded from cfg.seed,
-draws each epoch's permutation and every step's noise, so a seed reproduces
-a run on one device; validation and the final evaluation draw from
+Randomness: epoch e's permutation, cache refresh and step noise come from a
+``torch.Generator`` on the device seeded with fold_seed(cfg.seed, e), as
+the JAX trainer folds the epoch into its key; so a seed reproduces a run
+on one device, and a run resumed from a checkpoint of epoch e draws what
+the uninterrupted run draws from epoch e + 1 on, with no generator state
+saved. Validation, the final evaluation and the artifacts draw from
 generators seeded afresh with fixed offsets of cfg.seed, so they are
 functions of the params.
 """
@@ -22,6 +29,7 @@ import contextlib
 import json
 import os
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -31,27 +39,34 @@ from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.data.loaders import load_dataset
 from exemplar_vae_tpu_torch.device import resolve_device
 from exemplar_vae_tpu_torch.models import create_model
+from exemplar_vae_tpu_torch.train import checkpoints, plots, sampling
 from exemplar_vae_tpu_torch.train.evaluation import (make_elbo_eval_fn,
                                                      make_eval_bank_fn,
                                                      make_iwae_fn)
 from exemplar_vae_tpu_torch.train.loss import Bank
+from exemplar_vae_tpu_torch.train.profiling import nan_debug, trace
 from exemplar_vae_tpu_torch.train.sampling import _top_dim
 from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                 make_cache_refresh,
                                                 make_epoch_fn)
 
 # offsets of cfg.seed for the evaluation generators (the fold-in constants
-# of the JAX trainer's evaluation keys)
+# of the JAX trainer's evaluation keys; the artifacts' is the port's own)
 VAL_SEED_OFFSET = 1_000_003
 TEST_SEED_OFFSET = 999_983
+ARTIFACT_SEED_OFFSET = 999_979
 
-_LATER = {
-    "resume": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
-    "eval_only": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
-    "checkpoint_every": "checkpoint/resume (ROADMAP.md, Queue 1, item 6)",
-    "debug_nans": "the profiling tools (ROADMAP.md, Queue 1, item 12)",
-    "profile_epoch": "the profiling tools (ROADMAP.md, Queue 1, item 12)",
-}
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, n: int) -> int:
+    """A 63-bit seed derived from (seed, n) alone (a splitmix64 step over
+    the pair; Python's hash() is salted per process): the port's
+    counterpart of jax.random.fold_in."""
+    x = (seed * 0x9E3779B97F4A7C15 + n + 1) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
 
 
 def beta_schedule(epoch: int, warmup: int) -> float:
@@ -63,14 +78,18 @@ def beta_schedule(epoch: int, warmup: int) -> float:
 
 class Experiment:
     """Owns the data, the model, the optimizer and the epoch loop, on
-    ``device`` ("cuda" unless the caller asks for "cpu")."""
+    ``device`` ("cuda" unless the caller asks for "cpu"). ``exp_dir``
+    overrides the experiment directory that the config derives
+    (<snapshot_dir>/<experiment_name>), for a run directory that was moved
+    or copied (augment.load_experiment)."""
 
-    def __init__(self, cfg: Config, device="cuda", verbose: bool = True):
-        for name, slice_ in _LATER.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"Config.{name}={getattr(cfg, name)!r} is not ported "
-                    f"yet: it comes with {slice_}")
+    def __init__(self, cfg: Config, device="cuda", verbose: bool = True,
+                 exp_dir: Optional[str] = None):
+        if cfg.checkpoint_backend != "npz":
+            raise NotImplementedError(
+                f"checkpoint_backend={cfg.checkpoint_backend!r}: the port "
+                f"writes npz checkpoints only; orbax is a JAX library and "
+                f"the port runs without JAX (ROADMAP.md, Queue 3)")
         if tuple(cfg.mesh_shape) != (1,):
             raise NotImplementedError(
                 f"mesh_shape={cfg.mesh_shape}: the port trains on one device; "
@@ -81,7 +100,9 @@ class Experiment:
         self.verbose = verbose
         self.model = create_model(cfg, device=dev)
         self.state = init_train_state(self.model, cfg)
-        self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        # the current epoch's generator (epoch 0's until training starts,
+        # for callers that drive epoch_fn themselves)
+        self.gen = self._generator(fold_seed(cfg.seed, 0))
 
         # --- device-resident data ---
         self.train_x = torch.from_numpy(self.splits.train_x).to(dev)
@@ -136,13 +157,17 @@ class Experiment:
         self.bad_epochs = 0
 
         # --- experiment dir + metrics ---
-        self.exp_dir = os.path.join(cfg.snapshot_dir, cfg.experiment_name())
+        self.exp_dir = exp_dir or os.path.join(cfg.snapshot_dir,
+                                               cfg.experiment_name())
         os.makedirs(self.exp_dir, exist_ok=True)
         with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
         self._metrics_path = os.path.join(self.exp_dir, "metrics.jsonl")
 
     # ------------------------------------------------------------------
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def _params_on_cpu(self) -> dict:
         return {k: v.detach().to("cpu", copy=True)
                 for k, v in self.model.state_dict().items()}
@@ -177,16 +202,23 @@ class Experiment:
         self.epoch += 1
         cfg = self.cfg
         beta = beta_schedule(self.epoch, cfg.warmup)
+        self.gen = self._generator(fold_seed(cfg.seed, self.epoch))
         if self.cache_refresh is not None:
             # the epoch's kNN cache, encoded with the params it starts from
             self.bank = self.bank._replace(cache_means=self.cache_refresh(
                 self.bank.images, generator=self.gen))
         perm = self.epoch_perm(self.steps_per_epoch, cfg.batch_size)
         t0 = time.perf_counter()
-        self.state, metrics = self.epoch_fn(
-            self.state, self.train_x, self.train_idx, perm, self.bank, beta,
-            generator=self.gen)
-        metrics = {k: float(v) for k, v in metrics.items()}   # one host read
+        with contextlib.ExitStack() as stack:
+            if cfg.profile_epoch and self.epoch == cfg.profile_epoch:
+                stack.enter_context(trace(os.path.join(self.exp_dir,
+                                                       "profile")))
+            if cfg.debug_nans:
+                stack.enter_context(nan_debug(True))
+            self.state, metrics = self.epoch_fn(
+                self.state, self.train_x, self.train_idx, perm, self.bank,
+                beta, generator=self.gen)
+            metrics = {k: float(v) for k, v in metrics.items()}  # host read
         dt = time.perf_counter() - t0
         metrics.update(epoch=self.epoch, beta=beta, epoch_seconds=dt,
                        images_per_sec=self.steps_per_epoch * cfg.batch_size / dt)
@@ -200,9 +232,8 @@ class Experiment:
         (fixed eval binarization, one fixed generator seed per run)."""
         eval_bank = (self.build_eval_bank(self.bank)
                      if self.bank is not None else None)
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.cfg.seed + VAL_SEED_OFFSET)
-        return self.elbo_eval(self.val_x, eval_bank, generator=gen)
+        return self.elbo_eval(self.val_x, eval_bank, generator=self._generator(
+            self.cfg.seed + VAL_SEED_OFFSET))
 
     def run(self, max_epochs: Optional[int] = None) -> dict:
         cfg = self.cfg
@@ -227,6 +258,8 @@ class Experiment:
                 # early stopping counts only once beta has warmed up
                 self.bad_epochs += 1
             self._log(m)
+            if cfg.checkpoint_every and self.epoch % cfg.checkpoint_every == 0:
+                self.save_checkpoint()
             if self.bad_epochs >= cfg.early_stopping_epochs:
                 break
         return self.final_evaluation()
@@ -234,19 +267,67 @@ class Experiment:
     # ------------------------------------------------------------------
     def final_evaluation(self) -> dict:
         """IWAE NLL (cfg.S samples) on the test split with the best params,
-        and their validation loss (equal to the tracked best_val: same
-        generator seed)."""
+        their validation loss (equal to the tracked best_val: same
+        generator seed), then the artifacts. A failure of the artifacts is
+        recorded as ``artifact_error`` in results.json, which is written
+        after them, and does not fail the finished run."""
         with self._loaded(self.best_params):
             eval_bank = (self.build_eval_bank(self.bank)
                          if self.bank is not None else None)
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.cfg.seed + TEST_SEED_OFFSET)
+            gen = self._generator(self.cfg.seed + TEST_SEED_OFFSET)
             test_nll, _ = self.iwae(self.test_x, eval_bank, generator=gen)
             val_loss, _, _ = self.validate()
-        results = {"test_nll": float(test_nll),
-                   "best_val_loss": float(val_loss),
-                   "epochs_trained": self.epoch}
+            results = {"test_nll": float(test_nll),
+                       "best_val_loss": float(val_loss),
+                       "epochs_trained": self.epoch}
+            try:
+                self.save_artifacts(eval_bank)
+            except Exception as e:    # plotting must not kill a finished run
+                traceback.print_exc()
+                results["artifact_error"] = f"{type(e).__name__}: {e}"
         with open(os.path.join(self.exp_dir, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         self._log({"final_test_nll": float(test_nll)})
         return results
+
+    def save_artifacts(self, eval_bank):
+        """Image grids of the model in place: reconstructions.png (25 test
+        points) beside real.png, generations.png (25 samples) and, under
+        the exemplar prior, exemplar_neighborhoods.png (5 samples around
+        each of 5 training points) and latent_knn_retrieval.png (each of 5
+        test points' 5 nearest exemplars in latent space)."""
+        cfg, g = self.cfg, self._generator(self.cfg.seed + ARTIFACT_SEED_OFFSET)
+
+        def save(name, images, ncol=None):
+            images = images.float() / 255.0 if images.dtype == torch.uint8 \
+                else images.float()
+            plots.save_grid(images.cpu().numpy(),
+                            os.path.join(self.exp_dir, name), ncol=ncol)
+
+        x_test = self.test_x[:25]
+        _, recon = sampling.reconstruct_x(self.model, cfg, x_test, generator=g)
+        save("reconstructions.png", recon)
+        save("real.png", x_test)
+        bank = self.bank
+        save("generations.png", sampling.generate_x(
+            self.model, cfg, 25, None if bank is None else bank.images,
+            n_valid=None if bank is None else bank.n_effective, generator=g))
+        if cfg.prior == "exemplar_prior":
+            save("exemplar_neighborhoods.png",
+                 sampling.reference_based_generation_x(
+                     self.model, cfg, self.train_x[:5], n_per_ref=5,
+                     generator=g), ncol=5)
+            _, imgs = sampling.latent_neighbors(
+                self.model, cfg, self.test_x[:5], bank.images,
+                eval_bank.cache_means, 5, valid=eval_bank.valid)
+            save("latent_knn_retrieval.png",
+                 imgs.reshape((-1,) + tuple(imgs.shape[2:])), ncol=5)
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, tag: str = "last"):
+        checkpoints.save_checkpoint(self, tag)
+
+    def restore_checkpoint(self, tag: str = "last") -> bool:
+        """Load ckpt_<tag> into this Experiment (its tensors onto its
+        device); False when there is none."""
+        return checkpoints.restore_checkpoint(self, tag)

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the port's kernels against their plain
 versions on the card, the prior's gradients through the kernel, the
-serving path through them at a small size, and the two-level models and
-the approximate prior on the card against the CPU.
+serving path through them at a small size, the two-level models, the
+approximate prior and the augmentation on the card against the CPU, and a
+checkpoint round trip on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it also runs where JAX is absent (tests/conftest.py imports JAX, hence
@@ -257,3 +258,57 @@ def test_approx_train_step_on_card(dev, support):
         losses.append(float(aux["loss"]))
     assert np.isfinite(losses[1])
     assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """Save on the card, restore into a fresh Experiment on the card: the
+    params, Adam moments, count, step, best params and the approximate
+    prior's cache come back bitwise, the tensors on the card."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+    cfg = Config(dataset_name="synthetic", training_set_size=256,
+                 number_components=256, val_set_size=32, test_set_size=32,
+                 batch_size=64, hidden_size=32, z1_size=8,
+                 approximate_prior=True, approximate_k=5,
+                 snapshot_dir=str(tmp_path))
+    exp = Experiment(cfg, device=dev, verbose=False)
+    exp.train_epoch()
+    exp.best_params = exp._params_on_cpu()
+    exp.save_checkpoint()
+    back = Experiment(cfg, device=dev, verbose=False)
+    assert back.restore_checkpoint()
+    assert (back.epoch, back.state.step, back.state.opt.count) == (
+        1, exp.state.step, exp.state.opt.count)
+    for (name, p), q in zip(exp.model.named_parameters(),
+                            back.model.parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q), name
+        for k in ("m", "v"):
+            got = back.state.opt.state[q][k]
+            assert got.device.type == "cuda", (name, k)
+            assert torch.equal(exp.state.opt.state[p][k], got), (name, k)
+        assert torch.equal(exp.best_params[name], back.best_params[name])
+    assert back.bank.cache_means.device.type == "cuda"
+    assert torch.equal(exp.bank.cache_means, back.bank.cache_means)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vae", "hvae_2level"])
+def test_augment_on_card_matches_cpu(dev, name):
+    """The exemplar-conditioned augmentation at fp32 on the card against
+    the CPU on the same weights, input and noise: rtol 1e-4."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train.augment import make_augment_fn
+    cfg = Config(model_name=name, hidden_size=300, z1_size=40, z2_size=40)
+    cpu = create_model(cfg, device="cpu", seed=3)
+    card = create_model(cfg, device=dev, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand((100, 28, 28, 1), generator=g) < 0.3).float()
+    eps = torch.randn((100, 40), generator=g)
+    eps1 = torch.randn((100, 40), generator=g) if name != "vae" else None
+    want = make_augment_fn(cpu, cfg)(x, eps=eps, eps1=eps1)
+    got = make_augment_fn(card, cfg)(
+        x.to(dev), eps=eps.to(dev), eps1=None if eps1 is None else eps1.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

@@ -60,6 +60,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def _entry_points():
+    from exemplar_vae_tpu_torch.classify_mnist import main as classify
     from exemplar_vae_tpu_torch.config import Config
     from exemplar_vae_tpu_torch.device import resolve_device
     from exemplar_vae_tpu_torch.models import create_model
@@ -76,11 +77,15 @@ def _entry_points():
         "main": lambda: main(["--dataset_name", "synthetic",
                               "--training_set_size", "8", "--val_set_size",
                               "4", "--test_set_size", "4"]),
+        "classify_mnist": lambda: classify(["--train_first",
+                                            "--dataset_name", "synthetic",
+                                            "--training_set_size", "8"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "create_model",
-                                  "ServingBundle.load", "Experiment", "main"])
+                                  "ServingBundle.load", "Experiment", "main",
+                                  "classify_mnist"])
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -11,6 +11,9 @@ the Experiment, on the CPU at a small size.
   reproduction, validation determinism, a batch larger than the dataset
   failing loudly; the options and models that later slices bring raise and
   name them.
+* The run's lifecycle: the artifacts (PNG grids) and a recorded artifact
+  error, profile_epoch's trace (tests/test_profiling.py), debug_nans, and
+  the CLI's --checkpoint_every, --resume and --eval_only on the CPU.
 """
 
 import dataclasses
@@ -286,11 +289,8 @@ def test_vamp_use_training_data_init(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(model_name="pixelhvae_2level"), "item 12"),
-    (dict(resume=True), "item 6"),
-    (dict(eval_only=True), "item 6"),
-    (dict(checkpoint_every=1), "item 6"),
     (dict(mesh_shape=(2,)), "item 11"),
-    (dict(profile_epoch=1), "item 12"),
+    (dict(checkpoint_backend="orbax"), "Queue 3"),
 ])
 def test_later_slices_raise_and_name_their_item(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -310,3 +310,143 @@ def test_main_cli_trains_on_the_cpu(tmp_path, capsys):
     assert json.loads(out[-1]) == results
     assert results["epochs_trained"] == 2 and np.isfinite(results["test_nll"])
     assert "device=cpu" in "\n".join(out)
+
+
+# ---------------------------------------------------------------------------
+# the run's lifecycle: artifacts, profiling, NaN detection, the CLI
+# ---------------------------------------------------------------------------
+
+
+def test_fold_seed_is_stable_and_separates_epochs():
+    from exemplar_vae_tpu_torch.train.trainer import fold_seed
+    seeds = {fold_seed(s, e) for s in (0, 14, 15) for e in range(50)}
+    assert len(seeds) == 150
+    assert all(0 <= x < 2 ** 63 for x in seeds)
+    assert fold_seed(14, 3) == fold_seed(14, 3)
+
+
+def test_final_evaluation_writes_the_artifacts(tmp_path):
+    from exemplar_vae_tpu_torch.train.plots import read_png
+    exp = _exp(_base(tmp_path, epochs=1))
+    results = exp.run(max_epochs=1)
+    assert "artifact_error" not in results
+    # 5x5 grids of 28x28 with 2-pixel separators; 5 columns of 5 rows
+    side = 5 * 30 + 2
+    for name in ("reconstructions.png", "real.png", "generations.png",
+                 "exemplar_neighborhoods.png", "latent_knn_retrieval.png"):
+        img = read_png(os.path.join(exp.exp_dir, name))
+        assert img.shape == (side, side, 1), name
+        assert img.max() > img.min(), name
+
+
+def test_artifact_error_is_recorded_not_raised(tmp_path, monkeypatch):
+    exp = _exp(_base(tmp_path, epochs=1, prior="standard"))
+
+    def broken(eval_bank):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(exp, "save_artifacts", broken)
+    results = exp.run(max_epochs=1)
+    assert results["artifact_error"] == "OSError: disk full"
+    with open(os.path.join(exp.exp_dir, "results.json")) as f:
+        assert json.load(f) == results
+
+
+def test_step_timer_counts():
+    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
+    t = StepTimer(images_per_step=100, distances_per_step=1000)
+    x = torch.ones(16)
+    for _ in range(3):
+        with t:
+            assert fetch_sync({"a": [x * 2]}) == 2.0
+    r = t.report()
+    assert r["steps"] == 3 and r["images_per_sec"] > 0
+    assert r["distances_per_sec"] == pytest.approx(10 * r["images_per_sec"])
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    from exemplar_vae_tpu_torch.train.profiling import trace
+    d = tmp_path / "prof"
+    with trace(str(d)):
+        torch.ones(32, 32) @ torch.ones(32, 32)
+    with open(d / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+
+
+def test_nan_debug_raises_in_the_backward_then_restores():
+    from exemplar_vae_tpu_torch.train.profiling import nan_debug
+    x = torch.tensor([-1.0], requires_grad=True)
+    with nan_debug(True):
+        with pytest.raises(RuntimeError, match="nan"):
+            torch.sqrt(x).sum().backward()
+    assert not torch.is_anomaly_enabled()
+    torch.sqrt(x).sum().backward()          # back to silent NaN
+    assert torch.isnan(x.grad).all()
+
+
+def test_profile_epoch_writes_trace(tmp_path):
+    exp = _exp(_base(tmp_path, training_set_size=128, number_components=128,
+                     batch_size=32, profile_epoch=2))
+    exp.train_epoch()
+    assert not os.path.exists(os.path.join(exp.exp_dir, "profile"))
+    exp.train_epoch()
+    assert os.path.isfile(os.path.join(exp.exp_dir, "profile", "trace.json"))
+
+
+def test_debug_nans_stops_the_step_at_the_backward(tmp_path):
+    """With debug_nans a NaN weight raises in the first backward; without,
+    the epoch finishes with a NaN loss (and the run aborts on it)."""
+    for debug in (True, False):
+        exp = _exp(_base(tmp_path / str(debug), debug_nans=debug))
+        with torch.no_grad():
+            exp.model.q_mean_head.kernel.fill_(float("nan"))
+        if debug:
+            with pytest.raises(RuntimeError, match="nan"):
+                exp.train_epoch()
+        else:
+            assert not np.isfinite(exp.train_epoch()["loss"])
+    assert not torch.is_anomaly_enabled()
+
+
+def _cli(tmp_path, *extra):
+    from exemplar_vae_tpu_torch.main import main
+    return main(["--no_cuda", "--dataset_name", "synthetic",
+                 "--training_set_size", "96", "--number_components", "96",
+                 "--val_set_size", "32", "--test_set_size", "32",
+                 "--batch_size", "32", "--warmup", "1", "--S", "4", "--MB",
+                 "2", "--hidden_size", "16", "--z1_size", "4",
+                 "--test_batch_size", "16", "--snapshot_dir", str(tmp_path),
+                 *extra])
+
+
+def test_cli_checkpoint_resume_and_eval_only(tmp_path, capsys):
+    """--checkpoint_every 1 leaves ckpt_last and the run ckpt_final;
+    --resume trains on from the checkpoint's epoch and logs only the new
+    epochs; --eval_only reproduces results.json's test_nll."""
+    _cli(tmp_path, "--epochs", "1", "--checkpoint_every", "1")
+    (exp_dir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    for tag in ("last", "final"):
+        with open(exp_dir / f"ckpt_{tag}" / "meta.json") as f:
+            assert json.load(f)["epoch"] == 1
+    capsys.readouterr()
+    results = _cli(tmp_path, "--epochs", "2", "--resume",
+                   "--checkpoint_every", "1")
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    assert results["epochs_trained"] == 2
+    with open(exp_dir / "metrics.jsonl") as f:
+        epochs = [json.loads(line).get("epoch") for line in f]
+    assert [e for e in epochs if e is not None] == [1, 2]
+    with open(exp_dir / "results.json") as f:
+        on_disk = json.load(f)
+    again = _cli(tmp_path, "--eval_only")
+    assert "eval_only: restored ckpt_final (epoch 2)" in capsys.readouterr().out
+    assert again["test_nll"] == on_disk["test_nll"]
+    assert again["best_val_loss"] == on_disk["best_val_loss"]
+
+
+def test_cli_eval_only_and_resume_without_checkpoint(tmp_path, capsys):
+    with pytest.raises(SystemExit, match="no restorable checkpoint"):
+        _cli(tmp_path, "--eval_only")
+    results = _cli(tmp_path, "--epochs", "1", "--resume")
+    assert "no checkpoint found" in capsys.readouterr().out
+    assert results["epochs_trained"] == 1
