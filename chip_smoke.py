@@ -12,10 +12,12 @@ Phases; any failure exits non-zero before the result lines:
    bf16 inputs, at every shape the paths give it (KERNEL_SHAPES): serving
    (B = N = 50 000, D = 40, no LOO; also Config 3's IWAE shape), train
    (B = 100, N = 50 000, LOO), validation (B = 100 and its tail of 56, no
-   LOO) and the CLI runs' IWAE chunks (B = 800 and its tail of 448, no
-   LOO), with ~1% invalid exemplars and an N that no tile divides; kernel,
-   plain, library-yardstick and bound times (the library yardstick is
-   freed before phase 4);
+   LOO), the CLI runs' IWAE chunks (B = 800 and its tail of 448, no LOO),
+   Config 4's IWAE round (B = 5000) and validation (B = 100 and 56) over
+   N = 200 000, and one rank's train step on a mesh of 2 (B = 100, N =
+   25 000, LOO), with ~1% invalid exemplars (N = 50 000: an N that no tile
+   divides); kernel, plain, library-yardstick and bound times (the library
+   yardstick is freed before phase 4);
 4. the serving path of BASELINE Config 1 at full width: a seeded VAE
    (784-300-300-40, fp32), a 50 000-image synthetic binarized bank encoded
    by make_eval_bank_fn, 3 score_nll requests of 100 points at S = 5000,
@@ -82,7 +84,30 @@ Phases; any failure exits non-zero before the result lines:
    (784-512-512-10 on all 50 000 labels): both test errors finite and
    below 0.9, classifier_results.json written, seconds per classifier
    epoch and augmented rows/s; each child's wall time;
-8. the kernels line, the card's name and power limit, and the ok line.
+8. BASELINE Config 4 at full width on the card, unsharded: the ConvHVAE
+   (default conv spec, hidden 300, z1 = z2 = 40) on celeba's stand-in,
+   synthetic_continuous (200 000 + 256 + 10 images of 64x64x3 uint8; the
+   CelebA files are not in the repository), the approximate prior (K = 10,
+   per-row support) over N = 200 000, batch 100, bf16, bank chunks of
+   4096. Cut: validation to 256 images, test to one IWAE request of 10
+   points. (a) The cache refresh of all 200 000 rows: ms, peak memory;
+   (b) a warm-up, then one timed 200-step epoch call: ms/step, images/s,
+   peak memory, no kernel launch; (c) a 10-step call under torch.profiler:
+   busy and idle shares, launches per step, device time by group, host
+   synchronizations of a 3-step call; (d) the validation ELBO, one launch
+   per batch at B = 100, 100, 56 over N = 200 000; (e) one fp32 IWAE
+   request at S = 5000, MB = 500, chunked by the autotune into one chunk of
+   10 points (B = 5000 rows a round, one launch per round), through the
+   kernel and through the scan on the same noise within rtol 1e-5, its
+   time, peak memory and device time by group;
+9. bank sharding: torchrun starts SHARD_W = 2 child processes of this
+   script (``--sharded-rank``), gloo ranks sharing the card, which run one
+   exact-prior Config 1 train step at full width (fp32, batch 100, LOO)
+   with the bank split 25 000 / 25 000, from the params and injected noise
+   of the same step on one process here: each rank's loss within rtol 1e-5
+   and each gradient within 1e-4 of its largest element, one kernel launch
+   per rank (B = 100, N = 25 000, LOO); the backend and world size printed;
+10. the kernels line, the card's name and power limit, and the ok line.
 """
 
 import contextlib
@@ -110,14 +135,28 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS, TF32_OPS, BF16_OPS = 67e12, 495e12, 989e12
 SFU_EXP_PER_CLOCK = 16
 N_BANK, D = 50_000, 40
-# (name, B, LOO) of every pairwise_lse call the paths below make: serving
-# and Config 3's IWAE (B = points x MB = N), the train step, validation
-# batches of test_batch_size = 100 and their tail (256 images: 56), and the
-# CLI runs' IWAE chunks (test_batch_size x MB = 800 rows at S = MB = 8) and
-# their tail (256 test images: 56 x 8 = 448)
-KERNEL_SHAPES = (("serving", 50_000, False), ("train", 100, True),
-                 ("validation", 100, False), ("validation_tail", 56, False),
-                 ("iwae_chunk", 800, False), ("iwae_tail", 448, False))
+# Config 4: its bank of 200 000 exemplars; validation and test cut to 256
+# images and to one IWAE request of 10 points (the IWAE chunk autotune's
+# 10 points per chunk at 64x64x3 and MB = 500: B = 5000 rows per round)
+C4_N, C4_VAL, C4_T, C4_CHUNK = 200_000, 256, 10, 4096
+# the sharded phase: ranks sharing the card, each holding N_BANK / SHARD_W
+SHARD_W = 2
+# (name, B, N, LOO) of every pairwise_lse call the paths below make:
+# serving and Config 3's IWAE (B = points x MB = N), the train step,
+# validation batches of test_batch_size = 100 and their tail (256 images:
+# 56), the CLI runs' IWAE chunks (test_batch_size x MB = 800 rows at S = MB
+# = 8) and their tail (256 test images: 56 x 8 = 448), Config 4's IWAE round
+# and validation over N = 200 000, and one rank's step on a mesh of 2
+KERNEL_SHAPES = (("serving", 50_000, N_BANK, False),
+                 ("train", 100, N_BANK, True),
+                 ("validation", 100, N_BANK, False),
+                 ("validation_tail", 56, N_BANK, False),
+                 ("iwae_chunk", 800, N_BANK, False),
+                 ("iwae_tail", 448, N_BANK, False),
+                 ("config4_iwae", C4_T * 500, C4_N, False),
+                 ("config4_validation", 100, C4_N, False),
+                 ("config4_validation_tail", 56, C4_N, False),
+                 ("sharded_train", 100, N_BANK // SHARD_W, True))
 # pairwise_lse times of the SIMT fp32 kernel that the tensor-core design
 # replaced (PERF.md, same script, H100 80GB HBM3 at 700 W), printed beside
 # this run's for reference only
@@ -274,18 +313,21 @@ def lse_library(z, means, log_var, data_idx, ex_idx, valid, in_dtype):
 def kernel_phase(pl):
     g = torch.Generator("cuda").manual_seed(0)
     dev = torch.device("cuda")
-    means = torch.randn((N_BANK, D), generator=g, device=dev)
-    ex_idx = torch.arange(N_BANK, dtype=torch.int32, device=dev)
-    valid = torch.rand(N_BANK, generator=g, device=dev) >= 0.01
     log_var = torch.tensor(-0.5, device=dev)
     check(N_BANK % 64 and N_BANK % 2048, "N must be ragged for every tile")
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     sm_hz = max_sm_clock_hz()
     log(f"[kernel] bound inputs: {sm_count} SMs, max SM clock "
         f"{sm_hz / 1e6:.0f} MHz")
-    results = {}
-    for shape, b, loo in KERNEL_SHAPES:
-        own = torch.randint(0, N_BANK, (b,), generator=g, device=dev)
+    results, banks = {}, {}
+    for shape, b, n, loo in KERNEL_SHAPES:
+        if n not in banks:        # one seeded bank of each size, ~1% invalid
+            banks[n] = (torch.randn((n, D), generator=g, device=dev),
+                        torch.arange(n, dtype=torch.int32, device=dev),
+                        torch.rand(n, generator=g, device=dev) >= 0.01)
+        means, ex_idx, valid = banks[n]
+        big = b * n >= 1e9
+        own = torch.randint(0, n, (b,), generator=g, device=dev)
         z = means[own] + 0.7 * torch.randn((b, D), generator=g, device=dev)
         data_idx = own.to(torch.int32) if loo else None
         args = (z, means, log_var, data_idx, ex_idx, valid)
@@ -303,7 +345,7 @@ def kernel_phase(pl):
                   f"non-finite kernel output")
             check(ok, f"{shape}/{dt_name}: kernel vs plain max abs "
                   f"{max_abs:.3g} rel {max_rel:.3g} > atol {atol} rtol {rtol}")
-            reps = 20 if b == 50_000 else 200
+            reps = 20 if big else 200
             ms = cuda_ms(lambda: pl.pairwise_lse(*args, in_dtype=dt), reps)
             plain_ms = cuda_ms(
                 lambda: pl.pairwise_lse_plain(*args, in_dtype=dt),
@@ -314,16 +356,16 @@ def kernel_phase(pl):
                   f"{shape}/{dt_name}: library yardstick disagrees")
             del lib
             library_ms = cuda_ms(lambda: lse_library(*args, in_dtype=dt),
-                                 3 if b == 50_000 else 50, warmup=1)
+                                 3 if big else 50, warmup=1)
             torch.cuda.empty_cache()
-            bound_ms, bound_by, term = lse_bound_ms(b, N_BANK, D, dt_name, loo,
+            bound_ms, bound_by, term = lse_bound_ms(b, n, D, dt_name, loo,
                                                     sm_count, sm_hz)
             results[(shape, dt_name)] = dict(
-                shape=shape, dtype=dt_name, B=b, N=N_BANK, D=D, loo=loo,
+                shape=shape, dtype=dt_name, B=b, N=n, D=D, loo=loo,
                 max_abs_err=max_abs, max_rel_err=max_rel, atol=atol,
                 rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bound_term=term)
-            log(f"[kernel] pairwise_lse {shape} B={b} N={N_BANK} D={D} "
+            log(f"[kernel] pairwise_lse {shape} B={b} N={n} D={D} "
                 f"loo={loo} {dt_name}: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (atol {atol}, rtol {rtol}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -331,6 +373,8 @@ def kernel_phase(pl):
                 f"({bound_by}: {term}; {100 * bound_ms / ms:.1f}% of it)"
                 + (f" SIMT kernel {SIMT_MS[(shape, dt_name)]} ms (recorded)"
                    if (shape, dt_name) in SIMT_MS else ""))
+    del banks
+    torch.cuda.empty_cache()
     return results
 
 
@@ -851,6 +895,337 @@ def config3_phase(pl, snap_dir):
             "config3_iwae": iwae_launches, "config3_cli_epoch": cli_launches}
 
 
+def config4_phase(pl, snap_dir):
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
+                                                         make_iwae_fn)
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+
+    cfg = Config(dataset_name="synthetic_continuous",
+                 model_name="convhvae_2level", prior="exemplar_prior",
+                 approximate_prior=True, approximate_k=10,
+                 approximate_support="per_row", number_components=C4_N,
+                 training_set_size=C4_N, val_set_size=C4_VAL,
+                 test_set_size=C4_T, batch_size=TRAIN_B, hidden_size=300,
+                 z1_size=D, z2_size=D, S=C3_S, MB=C3_MB,
+                 exact_reencode_chunk=C4_CHUNK, compute_dtype="bfloat16",
+                 use_pallas_prior=True, snapshot_dir=str(snap_dir / "c4"),
+                 seed=14)
+    check(cfg.conv_enc_spec == "32k7s1,32k3s2,64k5s1,64k3s2"
+          and cfg.conv_dec_spec == "t64k3s2,t32k3s2,c32k3s1"
+          and cfg.conv_proj_channels == 64, "Config's conv spec is not the "
+          "default of the JAX package")
+    t0 = time.perf_counter()
+    exp = Experiment(cfg, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(exp.cfg.input_type == "continuous" and exp.splits.source ==
+          "synthetic" and tuple(exp.train_x.shape) == (C4_N, 64, 64, 3)
+          and exp.train_x.dtype == torch.uint8, f"Config 4 data: "
+          f"{exp.cfg.input_type} {exp.splits.source} "
+          f"{tuple(exp.train_x.shape)} {exp.train_x.dtype}")
+    check(exp.bank.images.data_ptr() == exp.train_x.data_ptr(),
+          "the bank is not a view of train_x")
+    n_params = sum(p.numel() for p in exp.model.parameters())
+    bank_gb = exp.bank.images.numel() / 1e9
+    persistent_gb = torch.cuda.memory_allocated() / 1e9
+
+    # (a) the cache refresh: all 200 000 rows through q(z2|x) in chunks
+    refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
+                                        generator=exp.gen)
+    torch.cuda.reset_peak_memory_stats()
+    refresh_ms = cuda_ms(refresh, 2, warmup=1)
+    refresh_gb = torch.cuda.max_memory_allocated() / 1e9
+    exp.bank = exp.bank._replace(cache_means=refresh())
+    check(bool(torch.isfinite(exp.bank.cache_means).all())
+          and tuple(exp.bank.cache_means.shape) == (C4_N, D),
+          "Config 4 cache means")
+
+    # (b) the timed 200-step call
+    run = lambda perm: exp.epoch_fn(  # noqa: E731
+        exp.state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,
+        generator=exp.gen)
+    exp.state, _ = run(exp.epoch_perm(WARM_STEPS, TRAIN_B))
+    perm = exp.epoch_perm(TRAIN_STEPS, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the train part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    exp.state, metrics = run(perm)
+    loss = float(metrics["loss"])           # host read: ends the timed call
+    dt = time.perf_counter() - t0
+    train_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(loss), f"Config 4 training loss {loss}")
+    check(train_launches == 0, f"the approximate train step launched the "
+          f"kernel {train_launches} times (its prior is a per-row LSE)")
+    ms_step = dt / TRAIN_STEPS * 1e3
+    log(f"[config4] BASELINE Config 4 at full width: ConvHVAE enc "
+        f"{cfg.conv_enc_spec} dec {cfg.conv_dec_spec} proj "
+        f"{cfg.conv_proj_channels}, hidden {cfg.hidden_size}, z1 = z2 = {D}, "
+        f"{n_params} params, bf16 compute; celeba -> synthetic_continuous "
+        f"64x64x3 uint8 (logistic-256 over 12288 values); approximate prior "
+        f"K={cfg.approximate_k} {cfg.approximate_support} over N={C4_N}, "
+        f"batch {TRAIN_B}, bank chunks of {C4_CHUNK}; set-up (data, model) "
+        f"{setup_s:.2f} s; bank {bank_gb:.3f} GB (a view of train_x); "
+        f"{persistent_gb:.3f} GB on the card after set-up")
+    log(f"[config4] cache refresh (N={C4_N}, {-(-C4_N // C4_CHUNK)} chunks): "
+        f"{refresh_ms:.3f} ms (events, mean of 2); peak memory "
+        f"{refresh_gb:.2f} GB")
+    log(f"[config4] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
+        f"{ms_step:.4f} ms/step, {TRAIN_STEPS * TRAIN_B / dt:.1f} images/s; "
+        f"loss {loss:.4f}; pairwise_lse launches {train_launches} (none "
+        f"expected); peak memory {peak_gb:.2f} GB")
+
+    # (c) profile and host syncs
+    prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
+    log_host(prof, "config4-profile", PROF_STEPS)
+    n_syncs = log_syncs("config4-profile", exp, run)
+    log_profile("config4-profile", PROF_STEPS, prof)
+    check(n_syncs == 0, f"the Config 4 step synchronized the host "
+          f"{n_syncs} times in 3 steps")
+
+    # (d) the validation ELBO (eval bank encode + batches of 100, 100, 56)
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    val = exp.validate()
+    val_s = time.perf_counter() - t0
+    val_launches = pl.pairwise_lse.launches
+    want_val = -(-C4_VAL // cfg.test_batch_size)
+    check(all(math.isfinite(v) for v in val), f"Config 4 validation {val}")
+    check(val_launches == want_val, f"validation launched the kernel "
+          f"{val_launches} times, not {want_val}")
+    log(f"[config4] validation ELBO over {C4_VAL} images (bf16, eval bank "
+        f"of N={C4_N} encoded first): {val_s:.3f} s (host clock); loss "
+        f"{val[0]:.4f}; pairwise_lse launches {val_launches}")
+
+    # (e) one IWAE request at fp32, through the kernel and the scan, chunked
+    # by the autotune (10 points: one chunk of 10 x MB = 5000 rows a round)
+    c32 = exp.cfg.replace(compute_dtype="float32")
+    m32 = create_model(c32, device="cuda")
+    m32.load_state_dict(exp.model.state_dict())
+    m32.eval()
+    bank, test_x = exp.bank, exp.test_x
+    del exp, run, prof
+    torch.cuda.empty_cache()
+    eb = make_eval_bank_fn(m32, c32)(bank)
+    rounds, r = -(-c32.S // c32.MB), c32.MB
+    g = torch.Generator("cuda").manual_seed(7)
+    eps = [(torch.randn((rounds, C4_T * r, D), generator=g, device="cuda"),
+            torch.randn((rounds, C4_T * r, D), generator=g, device="cuda"))]
+    iwae_k = make_iwae_fn(m32, c32)
+    iwae_k(test_x, eb, eps=eps)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the IWAE part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    mean_k, nll_k = iwae_k(test_x, eb, eps=eps)
+    iwae_ms = (time.perf_counter() - t0) * 1e3
+    iwae_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    iwae_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False))(
+        test_x, eb, eps=eps)
+    err = float(np.abs(nll_k - nll_s).max())
+    check(iwae_launches == rounds, f"the IWAE request launched the kernel "
+          f"{iwae_launches} times, not {rounds} (one chunk of {C4_T})")
+    check(nll_k.shape == (C4_T,) and bool(np.isfinite(nll_k).all()),
+          "Config 4 IWAE NLL not finite")
+    check(bool((np.abs(nll_k - nll_s) <= NLL_RTOL * np.abs(nll_s)).all()),
+          f"Config 4 IWAE kernel vs scan max abs diff {err:.3g} > rtol "
+          f"{NLL_RTOL}")
+    log(f"[config4] IWAE request of {C4_T} points (one autotuned chunk), "
+        f"S={c32.S}, MB={r} ({rounds} rounds of {C4_T * r} rows), fp32, eval "
+        f"bank N={C4_N}: {iwae_ms:.3f} ms (warm, host clock); mean NLL "
+        f"{mean_k:.4f}; kernel vs scan max abs diff {err:.3e} (rtol "
+        f"{NLL_RTOL}); pairwise_lse launches {iwae_launches}; peak memory "
+        f"{iwae_gb:.2f} GB")
+    log_profile("config4-iwae", 1, profile_ms(
+        lambda: iwae_k(test_x, eb, eps=eps)), unit="request")
+    del m32, eb, eps, bank, test_x
+    torch.cuda.empty_cache()
+    return {"config4_train": train_launches, "config4_validation": val_launches,
+            "config4_iwae": iwae_launches}
+
+
+def _sharded_cfg():
+    """Config 1 training at full width, fp32 (TF32 off) so that one rank
+    and two agree to float rounding: the exact prior over N_BANK with LOO,
+    the bank encoded in one piece."""
+    from exemplar_vae_tpu_torch.config import Config
+    return Config(dataset_name="synthetic", model_name="vae",
+                  prior="exemplar_prior", number_components=N_BANK,
+                  hidden_size=300, z1_size=D, batch_size=TRAIN_B,
+                  use_pallas_prior=True, exact_reencode_chunk=0,
+                  exact_remat=False, compute_dtype="float32", seed=14)
+
+
+def _sharded_bank(dev):
+    from exemplar_vae_tpu_torch.data.synthetic import synthetic_images
+    return torch.from_numpy(synthetic_images(N_BANK, 28, 28, 1,
+                                             seed=1)[0]).to(dev)
+
+
+def sharded_child(work):
+    """One rank of the [sharded] phase (torchrun sets RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR/PORT): gloo ranks sharing cuda:0, each holding
+    N_BANK / SHARD_W rows of the bank, one train step from the parent's
+    params and noise; writes rank<r>.pt into ``work``."""
+    import torch.distributed as dist
+
+    from exemplar_vae_tpu_torch.device import resolve_device
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
+    from exemplar_vae_tpu_torch.parallel.mesh import (create_mesh,
+                                                      init_distributed,
+                                                      shutdown)
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_train_step)
+
+    dev = resolve_device("cuda:0")
+    init_distributed(dev, backend="gloo")
+    try:
+        cfg = _sharded_cfg().replace(mesh_shape=(SHARD_W,))
+        mesh = create_mesh(cfg, dev)
+        check(mesh is not None and mesh.size == SHARD_W, "no mesh")
+        log(f"[sharded] rank {mesh.rank}: backend {dist.get_backend()}, "
+            f"world_size {dist.get_world_size()}, device {mesh.device}, "
+            f"{'' if banned_modules() == [] else 'JAX LOADED '}"
+            f"kernel build {pl.build():.2f} s (reused from _build/)")
+        inp = torch.load(work / "inputs.pt", weights_only=True)
+        model = create_model(cfg, device=dev)
+        model.load_state_dict(inp["params"])
+        bank_x = _sharded_bank(dev)
+        lo, hi = mesh.shard_range(N_BANK)
+        bank = Bank(images=bank_x[lo:hi],
+                    data_idx=torch.arange(lo, hi, dtype=torch.int32,
+                                          device=dev),
+                    valid=torch.ones(hi - lo, dtype=torch.bool, device=dev),
+                    cache_means=None, n_effective=N_BANK)
+        rows = inp["rows"].to(dev)
+        step = make_train_step(cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        pl.pairwise_lse.launches = 0
+        t0 = time.perf_counter()
+        _, aux = step(init_train_state(model, cfg), bank_x[rows],
+                      rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
+                      eps=inp["eps"].to(dev))
+        loss = float(aux["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = pl.pairwise_lse.launches
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        # a second step, outside the count: the first pays the process's
+        # first cuBLAS, kernel-module and collective calls
+        t0 = time.perf_counter()
+        _, aux = step(init_train_state(model, cfg), bank_x[rows],
+                      rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
+                      eps=inp["eps"].to(dev))
+        float(aux["loss"])
+        step2_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"loss": loss, "launches": launches, "step_ms": step_ms,
+                    "step2_ms": step2_ms,
+                    "backend": dist.get_backend(),
+                    "world_size": dist.get_world_size(),
+                    "banned": banned_modules(), "grads": grads},
+                   work / f"rank{mesh.rank}.pt")
+    finally:
+        shutdown()
+
+
+def sharded_phase(pl, snap_dir):
+    """Part B on the card: one exact-prior Config 1 train step at full width
+    on SHARD_W gloo ranks sharing the card (torchrun child processes of this
+    script), the bank split 25 000 / 25 000, against the same step on one
+    process from the same params and injected noise."""
+    import socket
+
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_train_step)
+
+    work = snap_dir / "sharded"
+    work.mkdir()
+    cfg = _sharded_cfg()
+    dev = torch.device("cuda")
+    model = create_model(cfg, device=dev, seed=0)
+    g = torch.Generator("cuda").manual_seed(11)
+    rows = torch.randperm(N_BANK, generator=g, device=dev)[:TRAIN_B]
+    u = torch.rand((TRAIN_B, 28, 28, 1), generator=g, device=dev)
+    eps = torch.randn((TRAIN_B, D), generator=g, device=dev)
+    torch.save({"params": {k: v.cpu() for k, v in model.state_dict().items()},
+                "rows": rows.cpu(), "u": u.cpu(), "eps": eps.cpu()},
+               work / "inputs.pt")
+    bank_x = _sharded_bank(dev)
+    bank = Bank(images=bank_x,
+                data_idx=torch.arange(N_BANK, dtype=torch.int32, device=dev),
+                valid=torch.ones(N_BANK, dtype=torch.bool, device=dev),
+                cache_means=None, n_effective=N_BANK)
+    _, aux = make_train_step(cfg)(init_train_state(model, cfg), bank_x[rows],
+                                  rows.to(torch.int32), bank, 1.0, u=u,
+                                  eps=eps)
+    ref_loss = float(aux["loss"])
+    ref = {k: p.grad for k, p in model.named_parameters()}
+    del bank_x, bank
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(SHARD_W), "--master_addr", "127.0.0.1", "--master_port",
+         str(port), str(ROOT / "chip_smoke.py"), "--sharded-rank", str(work)],
+        cwd=ROOT, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[sharded] | {line}")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"the {SHARD_W} ranks exited "
+          f"{proc.returncode}")
+    launches = {}
+    for r in range(SHARD_W):
+        out = torch.load(work / f"rank{r}.pt", weights_only=True)
+        check(out["banned"] == [], f"rank {r} imported {out['banned']}")
+        check(out["launches"] == 1, f"rank {r} launched the kernel "
+              f"{out['launches']} times in one step")
+        rel = abs(out["loss"] - ref_loss) / abs(ref_loss)
+        check(rel <= STEP_LOSS_RTOL, f"rank {r} loss {out['loss']} vs one "
+              f"process {ref_loss}")
+        worst = ("", -1.0)
+        for name, w in ref.items():
+            e = float((out["grads"][name].to(dev) - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            check(e <= GRAD_REL, f"rank {r} gradient {name}: {e:.3g} of its "
+                  f"largest element > {GRAD_REL}")
+            worst = max(worst, (name, e), key=lambda t: t[1])
+        launches[f"sharded_rank{r}"] = out["launches"]
+        log(f"[sharded] rank {r} ({out['backend']}, world_size "
+            f"{out['world_size']}): loss {out['loss']:.6f} vs one process "
+            f"{ref_loss:.6f} (rel {rel:.3e}, rtol {STEP_LOSS_RTOL}); worst "
+            f"gradient {worst[0]} at {worst[1]:.3e} of its largest element "
+            f"(limit {GRAD_REL}); pairwise_lse launches {out['launches']} at "
+            f"B={TRAIN_B}, N={N_BANK // SHARD_W}, LOO; step "
+            f"{out['step_ms']:.3f} ms (the process's first), a second "
+            f"{out['step2_ms']:.3f} ms")
+    log(f"[sharded] Config 1 exact-prior step at full width on {SHARD_W} "
+        f"gloo ranks sharing the card, N={N_BANK} split "
+        f"{N_BANK // SHARD_W} per rank: torchrun wall {wall_s:.2f} s")
+    return launches
+
+
+def banned_modules():
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "flax", "optax", "exemplar_vae_tpu")]
+
+
 def run_child(tag, module, argv):
     """Run ``python -m module argv`` in a child process from the repository
     root, its output logged under ``tag``; fails the phase on a non-zero
@@ -1183,12 +1558,13 @@ def main():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_child(Path(sys.argv[2]))
+        return
     from exemplar_vae_tpu_torch.device import resolve_device
     from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
 
-    banned = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "flax", "optax",
-                                     "exemplar_vae_tpu")]
+    banned = banned_modules()
     check(not banned, f"the port imported {banned}")
     resolve_device("cuda")            # TF32 off for matmuls and cuDNN
     smi = subprocess.run(
@@ -1202,12 +1578,23 @@ def main():
     build_s = pl.build(verbose=True)       # prints ptxas registers/spills
     log(f"[build] pairwise_lse.cu: nvcc + load {build_s:.2f} s")
 
-    kern = kernel_phase(pl)
-    launches = serving_phase(pl)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kern = timed("kernel", kernel_phase, pl)
+    launches = timed("serve", serving_phase, pl)
     with tempfile.TemporaryDirectory() as snap:
-        train_launches, cli_launches = training_phase(pl, Path(snap))
-        c3 = config3_phase(pl, Path(snap))
-        c5 = config5_phase(pl, Path(snap))
+        train_launches, cli_launches = timed("train", training_phase, pl,
+                                             Path(snap))
+        c3 = timed("config3", config3_phase, pl, Path(snap))
+        c5 = timed("config5", config5_phase, pl, Path(snap))
+        c4 = timed("config4", config4_phase, pl, Path(snap))
+        sharded = timed("sharded", sharded_phase, pl, Path(snap))
 
     main_v = kern[("serving", "float32")]
     entry = {
@@ -1215,16 +1602,19 @@ def main():
         "source": "exemplar_vae_tpu_torch/csrc/pairwise_lse.cu",
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
         "launches": (launches + train_launches + c3["config3_validation"]
-                     + c3["config3_iwae"] + sum(c5.values())),
+                     + c3["config3_iwae"] + sum(c5.values())
+                     + sum(c4.values()) + sum(sharded.values())),
         "launches_per_path": {"serving": launches, "training": train_launches,
-                              "cli_epoch": cli_launches, **c3, **c5},
+                              "cli_epoch": cli_launches, **c3, **c5, **c4,
+                              **sharded},
         "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],
         "library_ms": main_v["library_ms"],
         "variants": list(kern.values()),
     }
-    log(f"[done] {time.perf_counter() - t0:.1f} s after the build started")
+    log(f"[done] {time.perf_counter() - t0:.1f} s after the build started; "
+        f"seconds per phase: {phase_s}")
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {

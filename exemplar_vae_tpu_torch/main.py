@@ -13,6 +13,12 @@ and saves the final state to ``ckpt_final``.
   (it warns and starts afresh when there is none);
 * ``--eval_only`` restores ``ckpt_final`` (else ``ckpt_last``) and runs
   the final evaluation and the artifacts, with no training.
+
+Bank sharding: ``--mesh W`` under torchrun runs W ranks, the exemplar bank
+and its cache split by rows over them (parallel/mesh.py), NCCL between
+cards (``--no_cuda``: gloo on the CPU); rank 0 prints and writes:
+
+    torchrun --nproc_per_node W -m exemplar_vae_tpu_torch.main --mesh W ...
 """
 
 from __future__ import annotations
@@ -23,38 +29,49 @@ import json
 def main(argv=None) -> dict:
     from exemplar_vae_tpu_torch.config import (config_from_args,
                                                reference_arg_parser)
+    from exemplar_vae_tpu_torch.parallel.mesh import shutdown
     from exemplar_vae_tpu_torch.train.trainer import Experiment
 
     ns = reference_arg_parser().parse_args(argv)
     cfg = config_from_args(ns)
     exp = Experiment(cfg, device="cpu" if ns.no_cuda else "cuda")
+    try:
+        return _run(exp, cfg)
+    finally:
+        if exp.mesh is not None:
+            shutdown()
+
+
+def _run(exp, cfg) -> dict:
+    say = print if exp._is_main else (lambda *a, **k: None)
     if cfg.eval_only:
         # the final checkpoint first: its best params gave the reported
         # numbers
         for tag in ("final", "last"):
             if exp.restore_checkpoint(tag):
-                print(f"eval_only: restored ckpt_{tag} (epoch {exp.epoch})")
+                say(f"eval_only: restored ckpt_{tag} (epoch {exp.epoch})")
                 break
         else:
             raise SystemExit(
                 f"--eval_only: no restorable checkpoint (ckpt_final or "
                 f"ckpt_last) under {exp.exp_dir}")
-        print(f"experiment dir: {exp.exp_dir}")
+        say(f"experiment dir: {exp.exp_dir}")
         results = exp.final_evaluation()
-        print(json.dumps(results))
+        say(json.dumps(results))
         return results
     if cfg.resume:
         if exp.restore_checkpoint():
-            print(f"resumed from epoch {exp.epoch}")
+            say(f"resumed from epoch {exp.epoch}")
         else:
-            print(f"WARNING: --resume given but no checkpoint found under "
-                  f"{exp.exp_dir}/ckpt_last; starting fresh")
-    print(f"experiment dir: {exp.exp_dir}")
-    print(f"dataset={exp.cfg.dataset_name} source={exp.splits.source} "
-          f"n_train={exp.n_train} device={exp.device}")
+            say(f"WARNING: --resume given but no checkpoint found under "
+                f"{exp.exp_dir}/ckpt_last; starting fresh")
+    say(f"experiment dir: {exp.exp_dir}")
+    say(f"dataset={exp.cfg.dataset_name} source={exp.splits.source} "
+        f"n_train={exp.n_train} device={exp.device}"
+        + (f" mesh={exp.mesh.size}" if exp.mesh else ""))
     results = exp.run()
     exp.save_checkpoint("final")
-    print(json.dumps(results))
+    say(json.dumps(results))
     return results
 
 

@@ -1,0 +1,97 @@
+"""The approximate-kNN exemplar prior over a sharded bank (counterpart of
+exemplar_vae_tpu/parallel/sharded_knn.py).
+
+The bank images and the cache of their latent means are split by rows over
+the ranks; the batch and its query means are replicated. Three pieces:
+
+1. the cache refresh: each rank encodes its own shard, no collective;
+2. the kNN select: each rank takes the k nearest rows of its cache shard
+   (padding at +inf, padded to k candidates with +inf when the shard holds
+   fewer), as global rows; the W*k candidates per query are gathered to
+   every rank and reduced to the global top-k, ties to the lowest position
+   in the rank-major candidate list, as lax.top_k does there, which is the
+   lowest global row;
+3. the row gather: each rank takes the selected rows it holds, zeros
+   elsewhere, and an all_reduce SUM assembles them (each row lives on one
+   rank, so the sum is the gather). uint8 images and int32 indices travel
+   in their own types, exact at any bank size.
+
+Gradients flow through the fresh re-encode of the gathered rows, which
+every rank computes alike: the step's gradient average leaves them as they
+are.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.ops.knn import pairwise_sq_dist, smallest_k
+from exemplar_vae_tpu_torch.parallel.mesh import Mesh
+from exemplar_vae_tpu_torch.train.loss import approx_log_p_top
+from exemplar_vae_tpu_torch.train.steps import make_cache_refresh
+
+
+def make_sharded_cache_refresh(model, cfg: Config, mesh: Mesh):
+    """``refresh(shard_images_raw, generator=None) -> (n_loc, Dz)``: the
+    rank's cache shard, as make_cache_refresh encodes a whole bank; a
+    stochastic bank preprocessing draws from the rank's own generator."""
+    refresh = make_cache_refresh(model, cfg)
+
+    def sharded_refresh(shard_images_raw, generator=None):
+        if cfg.bank_stochastic_preprocess:
+            generator = mesh.shard_generator(generator)
+        return refresh(shard_images_raw, generator=generator)
+
+    return sharded_refresh
+
+
+def sharded_knn_select(q_means, cache_shard, valid_shard, k: int,
+                       mesh: Mesh):
+    """(B, k) int64 global bank rows of the k nearest cached means of each
+    replicated query, over every rank's shard. ``valid_shard`` is the
+    shard's valid mask: padding rows get +inf and are never picked while k
+    valid rows remain."""
+    n_loc = cache_shard.shape[0]
+    d = pairwise_sq_dist(q_means.detach(), cache_shard.detach())
+    d = torch.where(valid_shard[None, :], d, torch.inf)
+    dist, idx = smallest_k(d, k)                          # (B, min(k, n_loc))
+    rows = idx + mesh.rank * n_loc
+    b, kk = rows.shape
+    if kk < k:                  # every rank gives k candidates
+        dist = torch.cat([dist, dist.new_full((b, k - kk), torch.inf)], 1)
+        rows = torch.cat([rows, rows.new_zeros((b, k - kk))], 1)
+    dist_all = mesh.all_gather_rows(dist[None])           # (W, B, k)
+    rows_all = mesh.all_gather_rows(rows[None])
+    dist_all = dist_all.permute(1, 0, 2).reshape(b, -1)   # rank-major
+    rows_all = rows_all.permute(1, 0, 2).reshape(b, -1)
+    _, pos = smallest_k(dist_all.contiguous(), k)
+    return torch.gather(rows_all, 1, pos)
+
+
+def sharded_row_gather(arr_shard, rows, mesh: Mesh):
+    """Rows ``rows`` (global, any shape) of the row-sharded array whose
+    shard this rank holds, in the shard's dtype: a masked local gather,
+    then all_reduce SUM."""
+    n_loc = arr_shard.shape[0]
+    local = rows.reshape(-1) - mesh.rank * n_loc
+    mine = (local >= 0) & (local < n_loc)
+    flat = arr_shard.reshape(n_loc, -1).index_select(
+        0, local.clamp(0, n_loc - 1))
+    flat = torch.where(mine[:, None], flat, torch.zeros_like(flat))
+    mesh.all_reduce(flat)
+    return flat.reshape(tuple(rows.shape) + tuple(arr_shard.shape[1:]))
+
+
+def make_sharded_approx_prior(cfg: Config, mesh: Mesh):
+    """``prior_fn(model, out, bank, ...)``, the train loss's
+    ``sharded_approx_fn``: the approximate prior (per-row or batch-union
+    support) with the kNN select and the row gather over the mesh;
+    ``bank`` holds this rank's shard of the images, indices, valid mask and
+    cache."""
+    return functools.partial(
+        approx_log_p_top,
+        select=functools.partial(sharded_knn_select, mesh=mesh),
+        gather=functools.partial(sharded_row_gather, mesh=mesh))

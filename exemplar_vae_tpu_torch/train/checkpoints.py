@@ -24,6 +24,13 @@ or, between the renames, at ckpt_<tag>.old, which restore falls back to and
 the next save promotes back before it cleans up. A restore checks every key,
 shape and dtype against the live state and raises CheckpointMismatch on any
 difference, so a config-drifted restore fails loudly.
+
+On a mesh every rank enters save: the sharded cache is gathered to every
+rank (a collective), rank 0 alone writes, and a barrier after the commit
+keeps the other ranks from running ahead of a half-written checkpoint (into
+a restore, say). The saved cache has the
+padded bank's rows, as the JAX package saves it on a mesh; restore gives
+each rank its rows back.
 """
 
 from __future__ import annotations
@@ -84,40 +91,55 @@ def _cache(exp):
     return None if bank is None else bank.cache_means
 
 
+def _whole_cache(exp):
+    """The cache of the whole (padded) bank: on a mesh gathered from every
+    rank's shard, a collective that every rank enters."""
+    cache = _cache(exp)
+    if cache is None or exp.mesh is None:
+        return cache
+    return exp.mesh.all_gather_rows(cache)
+
+
 def save_checkpoint(exp, tag: str = "last"):
-    """Write ``exp``'s full state to <exp_dir>/ckpt_<tag>, atomically."""
+    """Write ``exp``'s full state to <exp_dir>/ckpt_<tag>, atomically. On a
+    mesh every rank calls it and rank 0 writes."""
     st = exp.state
+    cache = _whole_cache(exp)
     d = os.path.join(exp.exp_dir, f"ckpt_{tag}")
     tmp_d = d + ".tmp"
-    _promote_crashed(d)
-    if os.path.exists(tmp_d):
-        shutil.rmtree(tmp_d)        # stale tmp of a crashed save
-    os.makedirs(tmp_d)
-    np.savez(os.path.join(tmp_d, "state.npz"),
-             **train_state_to_keystr(st.model, st.opt, st.step))
-    np.savez(os.path.join(tmp_d, "best_params.npz"),
-             **params_to_keystr(exp.best_params))
-    cache = _cache(exp)
-    if cache is not None:
-        np.savez(os.path.join(tmp_d, "cache.npz"), cache=cache.cpu().numpy())
-    with open(os.path.join(tmp_d, "meta.json"), "w") as f:
-        json.dump({"epoch": exp.epoch, "best_val": exp.best_val,
-                   "bad_epochs": exp.bad_epochs, "backend": "npz"}, f)
-    # commit: swap the whole directory in two renames
-    old_d = d + ".old"
-    if os.path.exists(old_d):
-        shutil.rmtree(old_d)
-    if os.path.exists(d):
-        os.replace(d, old_d)
-    os.replace(tmp_d, d)
-    if os.path.exists(old_d):
-        shutil.rmtree(old_d)
+    if exp._is_main:
+        _promote_crashed(d)
+        if os.path.exists(tmp_d):
+            shutil.rmtree(tmp_d)        # stale tmp of a crashed save
+        os.makedirs(tmp_d)
+        np.savez(os.path.join(tmp_d, "state.npz"),
+                 **train_state_to_keystr(st.model, st.opt, st.step))
+        np.savez(os.path.join(tmp_d, "best_params.npz"),
+                 **params_to_keystr(exp.best_params))
+        if cache is not None:
+            np.savez(os.path.join(tmp_d, "cache.npz"),
+                     cache=cache.cpu().numpy())
+        with open(os.path.join(tmp_d, "meta.json"), "w") as f:
+            json.dump({"epoch": exp.epoch, "best_val": exp.best_val,
+                       "bad_epochs": exp.bad_epochs, "backend": "npz"}, f)
+        # commit: swap the whole directory in two renames
+        old_d = d + ".old"
+        if os.path.exists(old_d):
+            shutil.rmtree(old_d)
+        if os.path.exists(d):
+            os.replace(d, old_d)
+        os.replace(tmp_d, d)
+        if os.path.exists(old_d):
+            shutil.rmtree(old_d)
+    if exp.mesh is not None:
+        exp.mesh.barrier()
 
 
 def restore_checkpoint(exp, tag: str = "last") -> bool:
     """Load <exp_dir>/ckpt_<tag> (or its .old twin) into ``exp``: params,
     moments and the cache on the Experiment's device, best params on the
-    CPU as the trainer keeps them. False when there is no checkpoint."""
+    CPU as the trainer keeps them. False when there is no checkpoint. On a
+    mesh every rank reads the files and keeps its rows of the cache."""
     d = os.path.join(exp.exp_dir, f"ckpt_{tag}")
     if (not os.path.exists(os.path.join(d, "meta.json"))
             and os.path.exists(os.path.join(d + ".old", "meta.json"))):
@@ -148,9 +170,13 @@ def restore_checkpoint(exp, tag: str = "last") -> bool:
     cache = _cache(exp)
     cache_p = os.path.join(d, "cache.npz")
     if cache is not None and os.path.exists(cache_p):
-        arr = _load_npz(cache_p, {"cache": cache.cpu().numpy()})["cache"]
+        mesh = exp.mesh
+        n = cache.shape[0] * (mesh.size if mesh else 1)
+        arr = _load_npz(cache_p, {"cache": np.zeros(
+            (n,) + tuple(cache.shape[1:]), np.float32)})["cache"]
+        lo, hi = mesh.shard_range(n) if mesh else (0, n)
         exp.bank = exp.bank._replace(
-            cache_means=torch.from_numpy(arr).to(cache.device))
+            cache_means=torch.from_numpy(arr[lo:hi]).to(cache.device))
     exp.epoch = int(meta["epoch"])
     exp.best_val = float(meta["best_val"])
     exp.bad_epochs = int(meta["bad_epochs"])

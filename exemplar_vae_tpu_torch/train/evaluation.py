@@ -39,8 +39,13 @@ def as_tensor(x, device, dtype=None):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def make_eval_bank_fn(model, cfg: Config):
-    """Encode the full exemplar bank once for evaluation (no gradient)."""
+def make_eval_bank_fn(model, cfg: Config, mesh=None):
+    """Encode the full exemplar bank once for evaluation (no gradient). On
+    a ``mesh`` (parallel/mesh.py) ``bank`` is this rank's shard: each rank
+    encodes its rows, then the means, indices and valid mask are gathered
+    to every rank, so validation and the IWAE run replicated over the whole
+    padded bank (padding masked by ``valid``, the denominator n_effective),
+    as XLA runs them over the JAX package's sharded arrays."""
 
     def pre(xc, u=None):
         return preprocess_batch(xc, input_type=cfg.input_type,
@@ -60,9 +65,12 @@ def make_eval_bank_fn(model, cfg: Config):
         else:
             means = encode_bank(model, pre(imgs),
                                 chunk=cfg.exact_reencode_chunk)
-        return Bank(images=None, data_idx=as_tensor(bank.data_idx, dev,
-                                                    torch.int32),
-                    valid=as_tensor(bank.valid, dev, torch.bool),
+        data_idx = as_tensor(bank.data_idx, dev, torch.int32)
+        valid = as_tensor(bank.valid, dev, torch.bool)
+        if mesh is not None:
+            means, data_idx, valid = (mesh.all_gather_rows(t) for t in
+                                      (means, data_idx, valid))
+        return Bank(images=None, data_idx=data_idx, valid=valid,
                     cache_means=means, n_effective=bank.n_effective)
 
     return build_bank

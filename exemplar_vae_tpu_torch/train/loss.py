@@ -30,9 +30,6 @@ from exemplar_vae_tpu_torch.ops.knn import (dedup_valid_mask,
                                             encode_bank_with_grad, knn_indices)
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
 
-_SHARDED = ("the sharded exemplar prior comes with bank sharding over "
-            "torch.distributed (ROADMAP.md, Queue 1, item 11)")
-
 
 class Bank(NamedTuple):
     """Exemplar-bank inputs.
@@ -86,17 +83,28 @@ def bank_log_denom(cfg: Config, bank: Bank, train: bool) -> float:
     return math.log(n)
 
 
-def _approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
-                      generator=None):
+def _local_select(q_means, cache_means, valid, k):
+    return knn_indices(q_means, cache_means, k, valid=valid)
+
+
+def _local_gather(arr, rows):
+    """Rows ``rows`` (any shape) of ``arr``, from its flat 2-D view."""
+    flat = arr.reshape(arr.shape[0], -1).index_select(0, rows.reshape(-1))
+    return flat.reshape(tuple(rows.shape) + tuple(arr.shape[1:]))
+
+
+def approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
+                     generator=None, *, select=_local_select,
+                     gather=_local_gather):
     """kNN over the stale cache, then a fresh re-encode of each point's K
-    neighbours with gradients; per-row or batch-union support."""
-    idx = knn_indices(out.q_mean, bank.cache_means, cfg.approximate_k,
-                      valid=bank.valid)                        # (B, K)
+    neighbours with gradients; per-row or batch-union support.
+    ``select(q_means, cache, valid, k) -> (B, K)`` bank rows and
+    ``gather(arr, rows)`` default to the bank on one device; the sharded
+    prior passes their collective forms (parallel/sharded_knn.py)."""
+    idx = select(out.q_mean, bank.cache_means, bank.valid,
+                 cfg.approximate_k)                             # (B, K)
     flat_idx = idx.reshape(-1)
-    # gather the B*K rows from a flat 2-D view of the bank
-    bank2d = bank.images.reshape(bank.images.shape[0], -1)
-    flat = bank2d.index_select(0, flat_idx).reshape(
-        (-1,) + tuple(bank.images.shape[1:]))
+    flat = gather(bank.images, flat_idx)                        # (B*K, ...)
     if flat.dtype == torch.uint8:
         flat = bank_pre_fn(cfg, generator)(flat)
     if cfg.approx_remat:
@@ -109,28 +117,31 @@ def _approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
         # kernel: the support is only B*K columns, as in the JAX package
         return model.log_p_z_top(
             out.z_top, bank_means=means, data_idx=loo_idx,
-            exemplar_idx=bank.data_idx[flat_idx],
+            exemplar_idx=gather(bank.data_idx, flat_idx),
             valid=dedup_valid_mask(flat_idx), log_denom=log_denom,
             impl="scan", block_n=cfg.prior_block_n)
     return model.log_p_z_top(
         out.z_top, bank_means=means.reshape(idx.shape + (means.shape[-1],)),
-        data_idx=loo_idx, exemplar_idx=bank.data_idx[idx],
+        data_idx=loo_idx, exemplar_idx=gather(bank.data_idx, idx),
         log_denom=log_denom)
 
 
 def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
                             train: bool, *, generator=None,
                             sharded_exact_fn=None, sharded_approx_fn=None):
-    """log p(z_top | exemplar bank) for the three support modes."""
-    if sharded_exact_fn is not None or sharded_approx_fn is not None:
-        raise NotImplementedError(_SHARDED)
+    """log p(z_top | exemplar bank) for the three support modes; on a
+    sharded bank the training modes go to ``sharded_exact_fn`` /
+    ``sharded_approx_fn`` (parallel/), which see this rank's shard."""
     if not train:
         return eval_log_p_top(model, out.z_top, cfg, bank)
     log_denom = bank_log_denom(cfg, bank, True)
     loo_idx = data_idx if cfg.loo_mask_enabled else None
     if cfg.approximate_prior:
-        return _approx_log_p_top(model, out, cfg, bank, loo_idx, log_denom,
-                                 generator)
+        fn = sharded_approx_fn or approx_log_p_top
+        return fn(model, out, cfg, bank, loo_idx, log_denom, generator)
+    if sharded_exact_fn is not None:
+        return sharded_exact_fn(model, out.z_top, loo_idx, bank, log_denom,
+                                generator)
     pre = draw = None
     if bank.images.dtype == torch.uint8:
         pre = bank_pre_fn(cfg, generator)

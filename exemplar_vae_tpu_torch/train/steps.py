@@ -42,13 +42,17 @@ def init_train_state(model, cfg: Config) -> TrainState:
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 
-def _preprocess_bank(bank: Bank, cfg: Config, generator=None) -> Bank:
+def _preprocess_bank(bank: Bank, cfg: Config, generator=None,
+                     mesh=None) -> Bank:
     """The epoch's bank: deterministic preprocessing unless
-    cfg.bank_stochastic_preprocess, stored in bf16 when the compute is bf16
-    (the encoder casts its input to bf16 anyway); a raw uint8 bank stays raw
-    and is preprocessed per encode chunk."""
+    cfg.bank_stochastic_preprocess (on a mesh each shard then draws from
+    its rank's own generator), stored in bf16 when the compute is bf16 (the
+    encoder casts its input to bf16 anyway); a raw uint8 bank stays raw and
+    is preprocessed per encode chunk."""
     if bank is None or bank.images is None or bank.images.dtype == torch.uint8:
         return bank
+    if mesh is not None and cfg.bank_stochastic_preprocess:
+        generator = mesh.shard_generator(generator)
     imgs = preprocess_batch(bank.images, input_type=cfg.input_type,
                             dynamic_binarization=cfg.dynamic_binarization,
                             train=cfg.bank_stochastic_preprocess,
@@ -58,12 +62,29 @@ def _preprocess_bank(bank: Bank, cfg: Config, generator=None) -> Bank:
     return bank._replace(images=imgs)
 
 
-def make_train_step(cfg: Config, *, bank_preprocessed: bool = False):
+def make_train_step(cfg: Config, *, bank_preprocessed: bool = False,
+                    mesh=None):
     """(state, x_raw, data_idx, bank, beta) -> (state, metrics).
 
     With ``bank_preprocessed`` the caller preprocessed the bank already (the
     epoch loop does it once per epoch); the batch always gets fresh draws.
-    After the step each parameter's ``.grad`` holds the step's gradient."""
+    With a ``mesh`` (parallel/mesh.py) ``bank`` is this rank's shard: the
+    exemplar prior runs sharded, every rank computes the replicated step
+    from the same draws, and each parameter's gradient is averaged over the
+    ranks before the optimizer (which makes it the one-rank gradient,
+    parallel/mesh.py::AllReduceSum). After the step each parameter's
+    ``.grad`` holds the step's gradient."""
+    sharded = {}
+    if mesh is not None and cfg.prior == "exemplar_prior":
+        # imported here: parallel.sharded_knn imports this module
+        if cfg.approximate_prior:
+            from exemplar_vae_tpu_torch.parallel.sharded_knn import \
+                make_sharded_approx_prior
+            sharded["sharded_approx_fn"] = make_sharded_approx_prior(cfg, mesh)
+        else:
+            from exemplar_vae_tpu_torch.parallel.sharded_prior import \
+                make_sharded_exact_prior
+            sharded["sharded_exact_fn"] = make_sharded_exact_prior(cfg, mesh)
 
     def train_step(state: TrainState, x_raw, data_idx, bank, beta, *,
                    generator=None, u=None, eps=None):
@@ -71,12 +92,14 @@ def make_train_step(cfg: Config, *, bank_preprocessed: bool = False):
                              dynamic_binarization=cfg.dynamic_binarization,
                              train=True, generator=generator, u=u)
         if cfg.prior == "exemplar_prior" and not bank_preprocessed:
-            bank = _preprocess_bank(bank, cfg, generator)
+            bank = _preprocess_bank(bank, cfg, generator, mesh)
         state.opt.zero_grad(set_to_none=True)
         loss, aux = batch_loss(state.model, x, beta, cfg, data_idx=data_idx,
                                bank=bank, train=True, eps=eps,
-                               generator=generator)
+                               generator=generator, **sharded)
         loss.backward()
+        if mesh is not None:
+            mesh.average_grads(state.model.parameters())
         state.opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in aux.items()}
@@ -84,21 +107,22 @@ def make_train_step(cfg: Config, *, bank_preprocessed: bool = False):
     return train_step
 
 
-def make_epoch_fn(cfg: Config):
-    """One epoch: the train step over ``perm``'s (S, B) rows.
+def make_epoch_fn(cfg: Config, mesh=None):
+    """One epoch: the train step over ``perm``'s (S, B) rows (on a
+    ``mesh``, with this rank's bank shard; see make_train_step).
 
     ``epoch_fn(state, train_x, train_idx, perm, bank, beta, generator=...,
     noise=...)``: ``perm`` (S, B) holds the epoch's permuted dataset indices
     on the device; ``noise`` is an optional sequence of per-step (u, eps),
     else the draws come from ``generator``. Returns (state, mean metrics as
     0-d device tensors)."""
-    train_step = make_train_step(cfg, bank_preprocessed=True)
+    train_step = make_train_step(cfg, bank_preprocessed=True, mesh=mesh)
 
     def epoch_fn(state, train_x, train_idx, perm, bank, beta, *,
                  generator=None, noise=None):
         steps, batch = perm.shape
         if cfg.prior == "exemplar_prior":
-            bank = _preprocess_bank(bank, cfg, generator)
+            bank = _preprocess_bank(bank, cfg, generator, mesh)
         x2d = train_x.reshape(train_x.shape[0], -1)
         auxs = []
         for i in range(steps):

@@ -1,5 +1,4 @@
-"""The experiment loop (counterpart of exemplar_vae_tpu/train/trainer.py, on
-one device).
+"""The experiment loop (counterpart of exemplar_vae_tpu/train/trainer.py).
 
 Per-epoch protocol: beta = min(1, epoch / warmup); one training pass over a
 fresh permutation; the validation ELBO; early stopping on the validation
@@ -21,6 +20,15 @@ the uninterrupted run draws from epoch e + 1 on, with no generator state
 saved. Validation, the final evaluation and the artifacts draw from
 generators seeded afresh with fixed offsets of cfg.seed, so they are
 functions of the params.
+
+Bank sharding: with ``cfg.mesh_shape`` (W,) the Experiment runs as rank r
+of W processes (torchrun; parallel/mesh.py). The training data, the params
+and every draw are replicated; the exemplar bank, padded to a multiple of W
+(padding rows with exemplar index -2 and valid False), and the approximate
+prior's cache are split by rows, rank r holding [r * n_loc, (r + 1) *
+n_loc). Rank 0 alone writes config.json, metrics.jsonl, results.json, the
+artifacts and the checkpoints; every rank runs the same epochs, validation
+and final evaluation in lockstep.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.data.loaders import load_dataset
 from exemplar_vae_tpu_torch.device import resolve_device
 from exemplar_vae_tpu_torch.models import create_model
+from exemplar_vae_tpu_torch.parallel.mesh import create_mesh, pad_to_shards
+from exemplar_vae_tpu_torch.parallel.sharded_knn import \
+    make_sharded_cache_refresh
 from exemplar_vae_tpu_torch.train import checkpoints, plots, sampling
 from exemplar_vae_tpu_torch.train.evaluation import (make_elbo_eval_fn,
                                                      make_eval_bank_fn,
@@ -78,8 +89,9 @@ def beta_schedule(epoch: int, warmup: int) -> float:
 
 class Experiment:
     """Owns the data, the model, the optimizer and the epoch loop, on
-    ``device`` ("cuda" unless the caller asks for "cpu"). ``exp_dir``
-    overrides the experiment directory that the config derives
+    ``device`` ("cuda" unless the caller asks for "cpu"; on a mesh "cuda"
+    is the rank's card, cuda:LOCAL_RANK). ``exp_dir`` overrides the
+    experiment directory that the config derives
     (<snapshot_dir>/<experiment_name>), for a run directory that was moved
     or copied (augment.load_experiment)."""
 
@@ -90,11 +102,10 @@ class Experiment:
                 f"checkpoint_backend={cfg.checkpoint_backend!r}: the port "
                 f"writes npz checkpoints only; orbax is a JAX library and "
                 f"the port runs without JAX (ROADMAP.md, Queue 3)")
-        if tuple(cfg.mesh_shape) != (1,):
-            raise NotImplementedError(
-                f"mesh_shape={cfg.mesh_shape}: the port trains on one device; "
-                f"bank sharding comes with ROADMAP.md, Queue 1, item 11")
-        self.device = dev = resolve_device(device)
+        dev = resolve_device(device)
+        self.mesh = create_mesh(cfg, dev)
+        self.device = dev = self.mesh.device if self.mesh else dev
+        self._is_main = self.mesh is None or self.mesh.is_main
         self.splits, self.cfg = load_dataset(cfg)
         cfg = self.cfg
         self.verbose = verbose
@@ -118,22 +129,23 @@ class Experiment:
                 f"batch_size or raise training_set_size.")
 
         # --- exemplar bank: the first number_components training points,
-        # a view of train_x (no second copy); the approximate prior's cache
-        # starts at zero and is refreshed at the start of every epoch ---
+        # a view of train_x (no second copy; on a mesh this rank's rows of
+        # it, padded); the approximate prior's cache starts at zero and is
+        # refreshed at the start of every epoch ---
         self.bank = None
         self.cache_refresh = None
         if cfg.prior == "exemplar_prior":
             n_ex = min(cfg.number_components, self.n_train)
+            images, idxs, valid = self._bank_rows(n_ex)
             cache = None
             if cfg.approximate_prior:
-                cache = torch.zeros((n_ex, _top_dim(cfg)),
+                cache = torch.zeros((images.shape[0], _top_dim(cfg)),
                                     dtype=torch.float32, device=dev)
-                self.cache_refresh = make_cache_refresh(self.model, cfg)
-            self.bank = Bank(
-                images=self.train_x[:n_ex],
-                data_idx=torch.arange(n_ex, dtype=torch.int32, device=dev),
-                valid=torch.ones(n_ex, dtype=torch.bool, device=dev),
-                cache_means=cache, n_effective=n_ex)
+                self.cache_refresh = (
+                    make_sharded_cache_refresh(self.model, cfg, self.mesh)
+                    if self.mesh else make_cache_refresh(self.model, cfg))
+            self.bank = Bank(images=images, data_idx=idxs, valid=valid,
+                             cache_means=cache, n_effective=n_ex)
         if cfg.prior == "vampprior" and cfg.use_training_data_init:
             # the pseudo-inputs start as the first C training points
             c = cfg.number_components
@@ -146,8 +158,8 @@ class Experiment:
             with torch.no_grad():
                 self.model.pseudo_inputs.copy_(torch.from_numpy(seed_imgs))
 
-        self.epoch_fn = make_epoch_fn(cfg)
-        self.build_eval_bank = make_eval_bank_fn(self.model, cfg)
+        self.epoch_fn = make_epoch_fn(cfg, self.mesh)
+        self.build_eval_bank = make_eval_bank_fn(self.model, cfg, self.mesh)
         self.elbo_eval = make_elbo_eval_fn(self.model, cfg)
         self.iwae = make_iwae_fn(self.model, cfg)
 
@@ -159,12 +171,30 @@ class Experiment:
         # --- experiment dir + metrics ---
         self.exp_dir = exp_dir or os.path.join(cfg.snapshot_dir,
                                                cfg.experiment_name())
-        os.makedirs(self.exp_dir, exist_ok=True)
-        with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if self._is_main:
+            os.makedirs(self.exp_dir, exist_ok=True)
+            with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
         self._metrics_path = os.path.join(self.exp_dir, "metrics.jsonl")
 
     # ------------------------------------------------------------------
+    def _bank_rows(self, n_ex: int) -> tuple:
+        """(images, data_idx, valid) of the bank rows this process holds:
+        all n_ex on one device; on a mesh rank r's rows of the bank padded
+        to a multiple of the mesh size (zero images, index -2, valid
+        False). Images are views of train_x where no padding falls in."""
+        idxs = np.arange(n_ex, dtype=np.int32)
+        lo, hi = 0, n_ex
+        if self.mesh is not None:
+            idxs, _ = pad_to_shards(idxs, self.mesh.size, pad_value=-2)
+            lo, hi = self.mesh.shard_range(len(idxs))
+        idxs = torch.from_numpy(idxs[lo:hi]).to(self.device)
+        images = self.train_x[lo:min(hi, n_ex)]
+        if images.shape[0] < hi - lo:
+            images = torch.cat([images, images.new_zeros(
+                (hi - lo - images.shape[0],) + tuple(images.shape[1:]))])
+        return images, idxs, idxs >= 0
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -184,6 +214,8 @@ class Experiment:
             self.model.load_state_dict(live)
 
     def _log(self, record):
+        if not self._is_main:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if self.verbose:
@@ -210,7 +242,8 @@ class Experiment:
         perm = self.epoch_perm(self.steps_per_epoch, cfg.batch_size)
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
-            if cfg.profile_epoch and self.epoch == cfg.profile_epoch:
+            if (cfg.profile_epoch and self.epoch == cfg.profile_epoch
+                    and self._is_main):
                 stack.enter_context(trace(os.path.join(self.exp_dir,
                                                        "profile")))
             if cfg.debug_nans:
@@ -280,13 +313,15 @@ class Experiment:
             results = {"test_nll": float(test_nll),
                        "best_val_loss": float(val_loss),
                        "epochs_trained": self.epoch}
-            try:
-                self.save_artifacts(eval_bank)
-            except Exception as e:    # plotting must not kill a finished run
-                traceback.print_exc()
-                results["artifact_error"] = f"{type(e).__name__}: {e}"
-        with open(os.path.join(self.exp_dir, "results.json"), "w") as f:
-            json.dump(results, f, indent=2)
+            if self._is_main:
+                try:
+                    self.save_artifacts(eval_bank)
+                except Exception as e:  # plotting must not kill a finished run
+                    traceback.print_exc()
+                    results["artifact_error"] = f"{type(e).__name__}: {e}"
+        if self._is_main:
+            with open(os.path.join(self.exp_dir, "results.json"), "w") as f:
+                json.dump(results, f, indent=2)
         self._log({"final_test_nll": float(test_nll)})
         return results
 
@@ -308,18 +343,19 @@ class Experiment:
         _, recon = sampling.reconstruct_x(self.model, cfg, x_test, generator=g)
         save("reconstructions.png", recon)
         save("real.png", x_test)
-        bank = self.bank
+        # the whole bank's images: train_x is whole on every rank
+        n_ex = None if self.bank is None else self.bank.n_effective
+        images = None if n_ex is None else self.train_x[:n_ex]
         save("generations.png", sampling.generate_x(
-            self.model, cfg, 25, None if bank is None else bank.images,
-            n_valid=None if bank is None else bank.n_effective, generator=g))
+            self.model, cfg, 25, images, n_valid=n_ex, generator=g))
         if cfg.prior == "exemplar_prior":
             save("exemplar_neighborhoods.png",
                  sampling.reference_based_generation_x(
                      self.model, cfg, self.train_x[:5], n_per_ref=5,
                      generator=g), ncol=5)
             _, imgs = sampling.latent_neighbors(
-                self.model, cfg, self.test_x[:5], bank.images,
-                eval_bank.cache_means, 5, valid=eval_bank.valid)
+                self.model, cfg, self.test_x[:5], images,
+                eval_bank.cache_means[:n_ex], 5, valid=eval_bank.valid[:n_ex])
             save("latent_knn_retrieval.png",
                  imgs.reshape((-1,) + tuple(imgs.shape[2:])), ncol=5)
 

@@ -84,6 +84,13 @@ _LARGE = 10 / np.sqrt(40)   # |z|, |mu| ~ 10 at D = 40
     (500, 2000, 40, False, torch.float32, {"scale": _LARGE}),
     (500, 2000, 40, True, torch.float32, {"scale": _LARGE}),
     (3000, 50_000, 40, True, torch.bfloat16, {}),
+    # Config 4's bank of 200 000: the IWAE round and a validation batch; a
+    # rank's shard of Config 1's bank on a mesh of 2, with LOO
+    (5000, 200_000, 40, False, torch.float32, {}),
+    (5000, 200_000, 40, False, torch.bfloat16, {}),
+    (100, 200_000, 40, False, torch.float32, {}),
+    (100, 200_000, 40, False, torch.bfloat16, {}),
+    (100, 25_000, 40, True, torch.float32, {}),
 ])
 def test_kernel_matches_plain(dev, b, n, d, loo, in_dtype, extra):
     args = _inputs(dev, b, n, d, loo, **extra)
@@ -209,6 +216,37 @@ def test_two_level_fp32_forward_on_card_matches_cpu(dev, name):
 
 
 @pytest.mark.cuda
+def test_config4_convhvae_fp32_forward_on_card_matches_cpu(dev):
+    """Config 4's model: the default conv spec on 3-channel continuous
+    64x64 uint8 images, dequantized at eval; fp32 on the card against the
+    CPU (rtol 1e-4), including the 3-channel logistic-256 RE."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.models.base import reconstruction_log_lik
+    from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
+    cfg = Config(model_name="convhvae_2level", hidden_size=32, z1_size=8,
+                 z2_size=8, input_size=(3, 64, 64), input_type="continuous",
+                 dynamic_binarization=False, number_components=300)
+    cpu = create_model(cfg, device="cpu", seed=0)
+    card = create_model(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(0)
+    raw = torch.randint(0, 256, (8, 64, 64, 3), generator=g, dtype=torch.uint8)
+    x = preprocess_batch(raw, input_type="continuous",
+                         dynamic_binarization=False, train=False)
+    eps = (torch.randn((8, 8), generator=g), torch.randn((8, 8), generator=g))
+    with torch.no_grad():
+        want = cpu(x, eps=eps)
+        got = card(x.to(dev), eps=tuple(e.to(dev) for e in eps))
+        re = [reconstruction_log_lik(xx, o.x_mean, o.x_logvar, "continuous")
+              for xx, o in ((x, want), (x.to(dev), got))]
+    assert got.x_mean.shape == (8, 64, 64, 3)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(re[1].cpu(), re[0], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,k", [(5, 30, 7), (100, 50_000, 10)])
 def test_knn_indices_on_card_equal_cpu_on_ties(dev, b, n, k):
     """Integer data: every distance is exact, repeated rows tie exactly,
@@ -312,3 +350,52 @@ def test_augment_on_card_matches_cpu(dev, name):
     got = make_augment_fn(card, cfg)(
         x.to(dev), eps=eps.to(dev), eps1=None if eps1 is None else eps1.to(dev))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mesh_over_nccl_on_one_rank(dev, tmp_path):
+    """The mesh's collectives over NCCL on a group of one card (uint8, int32,
+    int64, bool and fp32 gathers, MAX, the differentiable SUM, the gradient
+    average, the barrier), and the sharded exact prior's log-space combine
+    of the kernel's LSE, the kNN select and the row gather, which on one
+    rank equal the unsharded functions."""
+    import torch.distributed as dist
+
+    from exemplar_vae_tpu_torch.ops.exemplar_prior import exemplar_log_prob
+    from exemplar_vae_tpu_torch.ops.knn import knn_indices
+    from exemplar_vae_tpu_torch.parallel.mesh import Mesh, shutdown
+    from exemplar_vae_tpu_torch.parallel.sharded_knn import (
+        sharded_knn_select, sharded_row_gather)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = Mesh(size=1, rank=0, device=dev)
+        for dt in (torch.uint8, torch.int32, torch.int64, torch.bool,
+                   torch.float32):
+            t = (torch.arange(12, device=dev) % 3).to(dt).reshape(4, 3)
+            assert torch.equal(mesh.all_gather_rows(t), t), dt
+        x = torch.tensor([1.0, -2.0], device=dev)
+        assert torch.equal(mesh.all_reduce(x.clone(), op="max"), x)
+        y = x.clone().requires_grad_()
+        (3.0 * mesh.all_reduce_sum_grad(y)).sum().backward()
+        assert torch.equal(y.grad, torch.full_like(x, 3.0))
+        mesh.average_grads([y])
+        assert torch.equal(y.grad, torch.full_like(x, 3.0))
+        mesh.barrier()
+        z, means, lv, didx, ex, valid = _inputs(dev, 100, 3000, 40, True)
+        before = tpl.pairwise_lse.launches
+        lse = exemplar_log_prob(z, means, lv, log_denom=0.0, data_idx=didx,
+                                exemplar_idx=ex, valid=valid, impl="pallas")
+        assert tpl.pairwise_lse.launches == before + 1
+        m = mesh.all_reduce(lse.clone(), op="max")
+        combined = m + torch.log(mesh.all_reduce_sum_grad(torch.exp(lse - m)))
+        torch.testing.assert_close(combined, lse, rtol=RTOL, atol=ATOL)
+        rows = sharded_knn_select(z, means, valid, 10, mesh)
+        assert torch.equal(rows, knn_indices(z, means, 10, valid=valid))
+        imgs = torch.randint(0, 256, (3000, 4, 4, 3), dtype=torch.uint8,
+                             device=dev)
+        assert torch.equal(sharded_row_gather(imgs, rows, mesh), imgs[rows])
+        assert torch.equal(sharded_row_gather(ex, rows, mesh), ex[rows])
+    finally:
+        shutdown()
