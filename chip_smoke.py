@@ -17,15 +17,22 @@ Phases; any failure exits non-zero before the result lines:
    N = 200 000, and one rank's train step on a mesh of 2 (B = 100, N =
    25 000, LOO), with ~1% invalid exemplars (N = 50 000: an N that no tile
    divides); kernel, plain, library-yardstick and bound times (the library
-   yardstick is freed before phase 4);
-4. the serving path of BASELINE Config 1 at full width: a seeded VAE
+   yardstick is freed before phase 5);
+4. [ingest]: the native parsers (data/native_ingest.py, built with g++)
+   against numpy on a 60 000 x 28 x 28 IDX file and a 10 000-row .amat
+   file: equal arrays, the build's and both parsers' times (host only);
+5. the serving path of BASELINE Config 1 at full width: a seeded VAE
    (784-300-300-40, fp32), a 50 000-image synthetic binarized bank encoded
    by make_eval_bank_fn, 3 score_nll requests of 100 points at S = 5000,
    MB = 500, generate of 100 and reference_generate of 16. The launch
    counts, set to 0 just before and read just after, must show the kernel
    ran once per round; the first request is re-scored with the blockwise
-   scan prior on the card with the same noise;
-5. the training path of BASELINE Config 1 at the settings of the JAX
+   scan prior on the card with the same noise. Then the export round trip:
+   export_serving_bundle writes the model and the eval bank, ServingBundle
+   .load reads them on the card, and the first request's score_nll and a
+   generate with injected noise equal the live functions' bitwise; export
+   and load seconds, the bundle's MB;
+6. the training path of BASELINE Config 1 at the settings of the JAX
    package's bench.py::measure_ours: the VAE at 784-300-300-40 on 50 000
    synthetic 28x28 images with dynamic binarization, the exact exemplar
    prior over all N = 50 000 (LOO, N-1 denominator) through the kernel,
@@ -44,7 +51,7 @@ Phases; any failure exits non-zero before the result lines:
    trains one epoch into a temporary snapshot directory (val/test 256,
    S = MB = 8) and its metrics.jsonl and results.json must hold finite
    numbers;
-6. BASELINE Config 3, the JAX package's bench row 3 at full width: the
+7. BASELINE Config 3, the JAX package's bench row 3 at full width: the
    two-level ConvHVAE (default conv spec, hidden 300, z1 = z2 = 40) on
    fashion_mnist (with no IDX files on disk its 28x28 gray synthetic
    stand-in, logistic-256 likelihood), the approximate kNN exemplar prior
@@ -62,7 +69,26 @@ Phases; any failure exits non-zero before the result lines:
    peak memory, and its device time by group under the profiler; (f) the
    CLI trains one epoch of it, finite metrics, and the
    exact kernel launch count computed from its config;
-7. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
+8. [pixel], the PixelHVAE at the JAX package's default width (hidden 300,
+   z1 = z2 = 40, PixelCNN of a 5x5 'A' and four 3x3 'B' masked convs of 64
+   features) on the 50 000-image synthetic binarized stand-in, the exact
+   prior over N = 50 000 (LOO) through the kernel, batch 100, bf16, the
+   bank in one piece. (a) A warm-up, then one timed 200-step epoch call:
+   ms/step, images/s, peak memory, one launch per step; (b) a 10-step call
+   under torch.profiler and the host syncs of a 3-step call; (c) one fp32
+   step kernel prior vs scan prior (loss rtol 1e-5, gradients within
+   GRAD_REL); (d) the validation ELBO over 10 000 images, one launch per
+   batch; (e) one fp32 IWAE request of 100 points at S = 5000, MB = 500
+   (the decoder teacher-forced on 50 000 rows a round), kernel vs scan on
+   the same noise, one launch per round, time, peak memory, device time by
+   group; (f) the crop sampler and the full-canvas oracle on the same 100
+   z2 rows and injected uniforms: time, CUDA launches, binary samples that
+   agree except where a row parts at a pixel whose uniform lies within
+   1e-5 of its mean; the model exported, loaded on the card, its generate
+   equal to the live sampler bitwise; (g) one CLI epoch (validation/test
+   256, S = MB = 8): finite metrics, the five PNG grids, the launches its
+   config implies;
+9. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
    at Config 1's full width: the VAE 784-300-300-40 on dynamic_mnist (with
    no IDX files on disk its labelled synthetic stand-in, 50 000 training
    images), the exact prior over N = 50 000, batch 100, the CLI's defaults
@@ -84,7 +110,7 @@ Phases; any failure exits non-zero before the result lines:
    (784-512-512-10 on all 50 000 labels): both test errors finite and
    below 0.9, classifier_results.json written, seconds per classifier
    epoch and augmented rows/s; each child's wall time;
-8. BASELINE Config 4 at full width on the card, unsharded: the ConvHVAE
+10. BASELINE Config 4 at full width on the card, unsharded: the ConvHVAE
    (default conv spec, hidden 300, z1 = z2 = 40) on celeba's stand-in,
    synthetic_continuous (200 000 + 256 + 10 images of 64x64x3 uint8; the
    CelebA files are not in the repository), the approximate prior (K = 10,
@@ -100,14 +126,14 @@ Phases; any failure exits non-zero before the result lines:
    10 points (B = 5000 rows a round, one launch per round), through the
    kernel and through the scan on the same noise within rtol 1e-5, its
    time, peak memory and device time by group;
-9. bank sharding: torchrun starts SHARD_W = 2 child processes of this
+11. bank sharding: torchrun starts SHARD_W = 2 child processes of this
    script (``--sharded-rank``), gloo ranks sharing the card, which run one
    exact-prior Config 1 train step at full width (fp32, batch 100, LOO)
    with the bank split 25 000 / 25 000, from the params and injected noise
    of the same step on one process here: each rank's loss within rtol 1e-5
    and each gradient within 1e-4 of its largest element, one kernel launch
    per rank (B = 100, N = 25 000, LOO); the backend and world size printed;
-10. the kernels line, the card's name and power limit, and the ok line.
+12. the kernels line, the card's name and power limit, and the ok line.
 """
 
 import contextlib
@@ -181,6 +207,14 @@ C5_RTOL = 1e-6
 C5_GRIDS = ("reconstructions.png", "real.png", "generations.png",
             "exemplar_neighborhoods.png", "latent_knn_retrieval.png")
 C5_GRID_SHAPE = (5 * 30 + 2, 5 * 30 + 2, 1)
+# the PixelHVAE: IWAE points per request, sampler rows, rows of a bundle's
+# generate; a binary sample may part from its oracle only at a pixel whose
+# uniform lies within PIX_U_MARGIN of the decoded mean (two float orders on
+# either side of u)
+PIX_T, PIX_ROWS, PIX_GEN = 100, 100, 16
+PIX_U_MARGIN = 1e-5
+# [ingest]: an MNIST-sized IDX file and a static-MNIST-sized .amat split
+INGEST_IDX, INGEST_AMAT = (60_000, 28, 28), (10_000, 784)
 CHILD_TIMEOUT_S = 600
 ROOT = Path(__file__).resolve().parent
 
@@ -384,7 +418,9 @@ def serving_phase(pl):
                                                      binarize_eval_split)
     from exemplar_vae_tpu_torch.data.synthetic import synthetic_images
     from exemplar_vae_tpu_torch.models import create_model
-    from exemplar_vae_tpu_torch.serve import make_serving_fns
+    from exemplar_vae_tpu_torch.serve import (ServingBundle,
+                                              export_serving_bundle,
+                                              make_serving_fns)
     from exemplar_vae_tpu_torch.train.evaluation import make_eval_bank_fn
     from exemplar_vae_tpu_torch.train.loss import Bank
 
@@ -497,6 +533,35 @@ def serving_phase(pl):
     log(f"[serve] pairwise_lse launches on the path: {launches} "
         f"(= {N_REQUESTS} requests x {rounds} rounds); peak memory "
         f"{peak_gb:.2f} GB")
+
+    # the export round trip: the served model and eval bank written by
+    # export_serving_bundle, loaded on the card, the first request and a
+    # generate with injected noise re-served bitwise
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export_serving_bundle(model, cfg, d, bank_means=eb.cache_means,
+                              data_idx=eb.data_idx, valid=eb.valid,
+                              n_effective=N_BANK, n_gen=N_GEN,
+                              score_chunk=T, s_total=cfg.S, r=r)
+        export_s = time.perf_counter() - t0
+        size_mb = sum(f.stat().st_size for f in Path(d).iterdir()) / 1e6
+        t0 = time.perf_counter()
+        bundle = ServingBundle.load(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    _, per = bundle.score_nll(test_x[:T], eps=[eps0])
+    check(np.array_equal(per, nlls[0].numpy()), "the loaded bundle's "
+          "score_nll differs from the live request 0")
+    idx = torch.randint(0, N_BANK, (N_GEN,), generator=g, device=dev)
+    e = torch.randn((N_GEN, D), generator=g, device=dev)
+    check(torch.equal(bundle.generate(idx=idx, eps=e),
+                      gen(eb.cache_means, idx=idx, eps=e)),
+          "the loaded bundle's generate differs from the live one")
+    log(f"[serve-export] export_serving_bundle {export_s:.3f} s, "
+        f"{size_mb:.3f} MB (params and the {N_BANK}-row eval bank); "
+        f"ServingBundle.load on the card {load_s:.3f} s; request 0's "
+        f"score_nll and generate of {N_GEN} with injected noise equal the "
+        f"live functions bitwise")
     return launches
 
 
@@ -1052,6 +1117,359 @@ def config4_phase(pl, snap_dir):
             "config4_iwae": iwae_launches}
 
 
+def parting_rows(model, got, want, u, z2, eps1):
+    """Rows in which binary samples ``got`` and ``want`` (B, H, W, 1)
+    differ; fails unless each parts at a pixel whose uniform lies within
+    PIX_U_MARGIN of its mean, decoded teacher-forced from ``want`` (the
+    pixels before the first difference are shared, the decoder causal)."""
+    b = got.shape[0]
+    with torch.no_grad():
+        p1_mean, p1_logvar = model.p_z1(z2)
+        z1 = p1_mean + torch.exp(0.5 * p1_logvar) * eps1
+        mean = model.decode(want, z1, z2)[0].reshape(b, -1).cpu()
+    got, want = got.reshape(b, -1).cpu(), want.reshape(b, -1).cpu()
+    u = u.reshape(u.shape[0], b).cpu()
+    rows = 0
+    for row in range(b):
+        diff = torch.nonzero(got[row] != want[row]).flatten()
+        if diff.numel():
+            i = int(diff[0])
+            gap = abs(float(u[i, row]) - float(mean[row, i]))
+            check(gap < PIX_U_MARGIN, f"samples part at row {row} pixel {i} "
+                  f"where |u - mean| = {gap:.3g} >= {PIX_U_MARGIN}")
+            rows += 1
+    return rows
+
+
+def pixel_phase(pl, snap_dir):
+    from exemplar_vae_tpu_torch.config import (Config, config_from_args,
+                                               reference_arg_parser)
+    from exemplar_vae_tpu_torch.main import main as cli_main
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.serve import (ServingBundle,
+                                              export_serving_bundle,
+                                              make_serving_fns)
+    from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
+                                                         make_iwae_fn)
+    from exemplar_vae_tpu_torch.train.plots import read_png
+    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_train_step)
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+
+    cfg = Config(dataset_name="synthetic", model_name="pixelhvae_2level",
+                 prior="exemplar_prior", number_components=N_BANK,
+                 training_set_size=N_BANK, val_set_size=C3_VAL,
+                 test_set_size=PIX_T, batch_size=TRAIN_B, hidden_size=300,
+                 z1_size=D, z2_size=D, S=C3_S, MB=C3_MB,
+                 use_pallas_prior=True, exact_reencode_chunk=0,
+                 exact_remat=False, compute_dtype="bfloat16",
+                 snapshot_dir=str(snap_dir / "pixel"), seed=14)
+    check(cfg.pixelcnn_features == 64 and cfg.pixelcnn_layers == 4
+          and not cfg.approximate_prior, "Config's PixelCNN stack is not the "
+          "JAX package's default")
+    t0 = time.perf_counter()
+    exp = Experiment(cfg, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(exp.cfg.input_type == "binary" and exp.cfg.dynamic_binarization
+          and tuple(exp.train_x.shape) == (N_BANK, 28, 28, 1),
+          f"PixelHVAE data: {exp.cfg.input_type} {tuple(exp.train_x.shape)}")
+    n_params = sum(p.numel() for p in exp.model.parameters())
+
+    # (a) the timed 200-step call
+    run = lambda perm: exp.epoch_fn(  # noqa: E731
+        exp.state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,
+        generator=exp.gen)
+    exp.state, _ = run(exp.epoch_perm(WARM_STEPS, TRAIN_B))
+    perm = exp.epoch_perm(TRAIN_STEPS, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StepTimer(images_per_step=TRAIN_STEPS * TRAIN_B)
+    # ---- the train part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    with timer:
+        exp.state, metrics = run(perm)
+        loss = fetch_sync(metrics["loss"])  # host read: ends the timed call
+    train_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(loss), f"PixelHVAE training loss {loss}")
+    check(train_launches == TRAIN_STEPS, f"pairwise_lse launched "
+          f"{train_launches} times in {TRAIN_STEPS} exact PixelHVAE steps")
+    dt = timer.total_seconds
+    log(f"[pixel] PixelHVAE at full width: hidden {cfg.hidden_size}, z1 = z2 "
+        f"= {D}, PixelCNN 5x5 'A' + {cfg.pixelcnn_layers} 3x3 'B' masked "
+        f"convs of {cfg.pixelcnn_features} features, {n_params} params, bf16 "
+        f"compute; synthetic 28x28 dynamically binarized; exact prior "
+        f"N={N_BANK} (LOO) through the kernel, batch {TRAIN_B}, bank encode "
+        f"in one piece; set-up (data, model) {setup_s:.2f} s")
+    log(f"[pixel] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
+        f"{dt / TRAIN_STEPS * 1e3:.4f} ms/step, {timer.images_per_sec:.1f} "
+        f"images/s; loss {loss:.4f}; pairwise_lse launches {train_launches}; "
+        f"peak memory {peak_gb:.2f} GB")
+
+    # (b) profile and host syncs
+    prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
+    log_host(prof, "pixel-profile", PROF_STEPS)
+    log_syncs("pixel-profile", exp, run)
+    log_profile("pixel-profile", PROF_STEPS, prof)
+
+    # (c) one fp32 step, kernel prior vs scan prior, same params and noise
+    g = torch.Generator("cuda").manual_seed(3)
+    rows = perm[0]
+    x_raw = exp.train_x[rows]
+    u = torch.rand(x_raw.shape, generator=g, device="cuda")
+    eps = (torch.randn((TRAIN_B, D), generator=g, device="cuda"),
+           torch.randn((TRAIN_B, D), generator=g, device="cuda"))
+    res = {}
+    for kernel in (True, False):
+        c = cfg.replace(compute_dtype="float32", use_pallas_prior=kernel)
+        m = create_model(c, device="cuda")
+        m.load_state_dict(exp.model.state_dict())
+        _, aux = make_train_step(c)(init_train_state(m, c), x_raw,
+                                    exp.train_idx[rows], exp.bank, 1.0, u=u,
+                                    eps=eps)
+        res[kernel] = (float(aux["loss"]),
+                       {n: p.grad for n, p in m.named_parameters()})
+    (lk, gk), (ls, gs) = res[True], res[False]
+    check(abs(lk - ls) <= STEP_LOSS_RTOL * abs(ls),
+          f"PixelHVAE kernel vs scan step loss {lk} vs {ls}")
+    worst = ("", -1.0)
+    for name, a in gk.items():
+        rel = float((a - gs[name]).abs().max()) / max(
+            float(gs[name].abs().max()), 1e-30)
+        check(bool(torch.isfinite(a).all()), f"non-finite gradient {name}")
+        check(rel <= GRAD_REL, f"PixelHVAE kernel vs scan gradient {name}: "
+              f"{rel:.3g} of its largest element > {GRAD_REL}")
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+    log(f"[pixel] fp32 step, kernel vs scan prior: loss {lk:.6f} vs {ls:.6f} "
+        f"(rel {abs(lk - ls) / abs(ls):.3e}, rtol {STEP_LOSS_RTOL}); worst "
+        f"gradient {worst[0]} at {worst[1]:.3e} of its largest element "
+        f"(limit {GRAD_REL})")
+    del res, gk, gs, m
+
+    # (d) the validation ELBO (eval bank encode + 100 batches)
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    val = exp.validate()
+    val_s = time.perf_counter() - t0
+    val_launches = pl.pairwise_lse.launches
+    want_val = -(-C3_VAL // cfg.test_batch_size)
+    check(all(math.isfinite(v) for v in val), f"PixelHVAE validation {val}")
+    check(val_launches == want_val, f"validation launched the kernel "
+          f"{val_launches} times, not {want_val}")
+    log(f"[pixel] validation ELBO over {C3_VAL} images (bf16): {val_s:.3f} s "
+        f"(host clock, eval bank encode included); loss {val[0]:.4f}; "
+        f"pairwise_lse launches {val_launches}")
+
+    # (e) one IWAE request at fp32, through the kernel and the scan
+    c32 = exp.cfg.replace(compute_dtype="float32")
+    m32 = create_model(c32, device="cuda")
+    m32.load_state_dict(exp.model.state_dict())
+    m32.eval()
+    bank, test_x = exp.bank, exp.test_x
+    del exp, run, prof
+    torch.cuda.empty_cache()
+    eb = make_eval_bank_fn(m32, c32)(bank)
+    rounds, r = -(-c32.S // c32.MB), c32.MB
+    g = torch.Generator("cuda").manual_seed(7)
+    eps = (torch.randn((rounds, PIX_T * r, D), generator=g, device="cuda"),
+           torch.randn((rounds, PIX_T * r, D), generator=g, device="cuda"))
+    iwae_k = make_iwae_fn(m32, c32).chunk_nll
+    iwae_k(test_x, eb, rounds, r, eps=eps)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the IWAE part of the path: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    nll_k = iwae_k(test_x, eb, rounds, r, eps=eps).cpu()
+    iwae_ms = (time.perf_counter() - t0) * 1e3
+    iwae_launches = pl.pairwise_lse.launches
+    # ---- end ----
+    iwae_gb = torch.cuda.max_memory_allocated() / 1e9
+    nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False)).chunk_nll(
+        test_x, eb, rounds, r, eps=eps).cpu()
+    err = float((nll_k - nll_s).abs().max())
+    check(iwae_launches == rounds, f"the PixelHVAE IWAE request launched the "
+          f"kernel {iwae_launches} times, not {rounds}")
+    check(nll_k.shape == (PIX_T,) and bool(torch.isfinite(nll_k).all()),
+          "PixelHVAE IWAE NLL not finite")
+    check(bool(((nll_k - nll_s).abs() <= NLL_RTOL * nll_s.abs()).all()),
+          f"PixelHVAE IWAE kernel vs scan max abs diff {err:.3g} > rtol "
+          f"{NLL_RTOL}")
+    log(f"[pixel] IWAE request of {PIX_T} points, S={c32.S}, MB={r} "
+        f"({rounds} rounds of {PIX_T * r} rows), fp32, eval bank N={N_BANK}, "
+        f"the decoder teacher-forced on the repeated x: {iwae_ms:.3f} ms "
+        f"(warm, host clock); mean NLL {float(nll_k.mean()):.4f}; kernel vs "
+        f"scan max abs diff {err:.3e} (rtol {NLL_RTOL}); pairwise_lse "
+        f"launches {iwae_launches}; peak memory {iwae_gb:.2f} GB")
+    log_profile("pixel-iwae", 1, profile_ms(
+        lambda: iwae_k(test_x, eb, rounds, r, eps=eps)), unit="request")
+    del eps
+    torch.cuda.empty_cache()
+
+    # (f) the two samplers on the same z2 rows and injected noise, fp32
+    g = torch.Generator("cuda").manual_seed(9)
+    idx = torch.randint(0, N_BANK, (PIX_ROWS,), generator=g, device="cuda")
+    z2 = eb.cache_means[idx] + torch.exp(0.5 * m32.get_prior_log_var()) * \
+        torch.randn((PIX_ROWS, D), generator=g, device="cuda")
+    noise = (torch.randn((PIX_ROWS, D), generator=g, device="cuda"),
+             torch.rand((28 * 28, PIX_ROWS, 1), generator=g, device="cuda"))
+    out, ms, launches = {}, {}, {}
+    samplers = {"crop": m32.generate_from_top,
+                "naive": m32.generate_from_top_naive}
+    pl.pairwise_lse.launches = 0
+    for name, fn in samplers.items():
+        fn(z2, eps=noise)                                # warm-up
+        ms[name] = wall_ms(lambda: out.setdefault(name, fn(z2, eps=noise)))
+        prof = profile_ms(lambda: fn(z2, eps=noise))
+        launches[name] = sum(c for op, _, c in prof[3]
+                             if "LaunchKernel" in op)
+        log_profile(f"pixel-sampler-{name}", 1, prof, unit="call")
+    sampler_launches = pl.pairwise_lse.launches
+    check(sampler_launches == 0, "a sampler launched pairwise_lse")
+    for name, s in out.items():
+        check(tuple(s.shape) == (PIX_ROWS, 28, 28, 1)
+              and set(torch.unique(s).tolist()) <= {0.0, 1.0},
+              f"{name} sampler output {tuple(s.shape)} not binary")
+    parted = parting_rows(m32, out["crop"], out["naive"], noise[1], z2,
+                          noise[0])
+    log(f"[pixel] samplers on {PIX_ROWS} rows, 28x28 = 784 steps, fp32: crop "
+        f"(receptive field {m32._receptive_halfwidth() + 1}x"
+        f"{2 * m32._receptive_halfwidth() + 1}) {ms['crop']:.3f} ms, "
+        f"{launches['crop']} CUDA launches = "
+        f"{launches['crop'] / 784:.1f} per pixel; naive (full canvas) "
+        f"{ms['naive']:.3f} ms, {launches['naive']} launches = "
+        f"{launches['naive'] / 784:.1f} per pixel (host clock, warm); "
+        f"samples binary, {parted} of {PIX_ROWS} rows part (each where "
+        f"|u - mean| < {PIX_U_MARGIN})")
+
+    # the bundle of this model: export, load on the card, generate again
+    bdir = snap_dir / "pixel_bundle"
+    t0 = time.perf_counter()
+    export_serving_bundle(m32, c32, str(bdir), bank_means=eb.cache_means,
+                          data_idx=eb.data_idx, valid=eb.valid,
+                          n_gen=PIX_GEN, s_total=c32.S, r=r)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = ServingBundle.load(str(bdir))
+    load_s = time.perf_counter() - t0
+    gen, _, _ = make_serving_fns(m32, c32, N_BANK, PIX_GEN, rounds, r)
+    e = (idx[:PIX_GEN], noise[0][:PIX_GEN])
+    e1 = (noise[0][:PIX_GEN], noise[1][:, :PIX_GEN])
+    live = gen(eb.cache_means, idx=e[0], eps=e[1], eps1=e1)
+    served = bundle.generate(idx=e[0], eps=e[1], eps1=e1)
+    check(torch.equal(live, served), "the loaded PixelHVAE bundle's generate "
+          "differs from the live sampler")
+    size_mb = sum(f.stat().st_size for f in bdir.iterdir()) / 1e6
+    log(f"[pixel-export] export {export_s:.3f} s, load on the card "
+        f"{load_s:.3f} s, {size_mb:.3f} MB; generate of {PIX_GEN} with "
+        f"injected noise equals the live sampler bitwise")
+    del m32, eb, bank, test_x, bundle, live, served, out
+    torch.cuda.empty_cache()
+
+    # (g) the CLI, one epoch
+    cli_dir = snap_dir / "pixel_cli"
+    argv = ["--model_name", "pixelhvae_2level", "--dataset_name", "synthetic",
+            "--training_set_size", str(N_BANK), "--number_components",
+            str(N_BANK), "--val_set_size", "256", "--test_set_size", "256",
+            "--epochs", "1", "--S", "8", "--MB", "8", "--compute_dtype",
+            "bfloat16", "--snapshot_dir", str(cli_dir)]
+    buf = io.StringIO()
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        results = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = pl.pairwise_lse.launches
+    for line in buf.getvalue().splitlines():
+        log(f"[pixel-cli] | {line}")
+    c = config_from_args(reference_arg_parser().parse_args(argv))
+    val_batches = -(-c.val_set_size // c.test_batch_size)
+    iwae_calls = (-(-c.test_set_size // c.test_batch_size)
+                  * -(-c.S // min(c.MB, c.S)))
+    want = (c.epochs * (c.training_set_size // c.batch_size + val_batches)
+            + val_batches + iwae_calls)
+    check(cli_launches == want, f"the PixelHVAE CLI epoch launched the "
+          f"kernel {cli_launches} times, not {want}")
+    (exp_dir,) = [p for p in cli_dir.iterdir() if p.is_dir()]
+    records = [json.loads(line) for line in
+               (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    on_disk = json.loads((exp_dir / "results.json").read_text())
+    nums = [v for rec in records + [on_disk] for v in rec.values()
+            if isinstance(v, (int, float))]
+    check(len(records) == 2 and on_disk == results
+          and "artifact_error" not in results
+          and all(math.isfinite(v) for v in nums),
+          f"PixelHVAE CLI metrics or results: {records} {on_disk}")
+    for name in C5_GRIDS:
+        shape = read_png(str(exp_dir / name)).shape
+        check(shape == C5_GRID_SHAPE, f"{name} decodes to {shape}, not "
+              f"{C5_GRID_SHAPE}")
+    log(f"[pixel-cli] python -m exemplar_vae_tpu_torch.main "
+        f"{' '.join(argv)}: {cli_s:.2f} s; epoch "
+        f"{records[0]['epoch_seconds']:.3f} s "
+        f"({records[0]['images_per_sec']:.1f} images/s, bank chunks of 8192 "
+        f"with recompute); loss {records[0]['loss']:.4f}, val_loss "
+        f"{records[0]['val_loss']:.4f}, test_nll {results['test_nll']:.4f}; "
+        f"five PNG grids decode; pairwise_lse launches {cli_launches}")
+    return {"pixel_train": train_launches, "pixel_validation": val_launches,
+            "pixel_iwae": iwae_launches, "pixel_samplers": sampler_launches,
+            "pixel_cli_epoch": cli_launches}
+
+
+def ingest_phase():
+    """The native parsers against numpy on an MNIST-sized IDX file and a
+    static-MNIST-sized .amat split (host only)."""
+    from exemplar_vae_tpu_torch.data import native_ingest
+
+    build_s = native_ingest.build()
+    rng = np.random.default_rng(0)
+    idx_arr = rng.integers(0, 256, INGEST_IDX, dtype=np.uint8)
+    amat_arr = (rng.random(INGEST_AMAT) < 0.3).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        idx_path, amat_path = f"{d}/train-images-idx3-ubyte", f"{d}/x.amat"
+        with open(idx_path, "wb") as f:
+            f.write(bytes([0, 0, 0x08, idx_arr.ndim]))
+            for n in idx_arr.shape:
+                f.write(n.to_bytes(4, "big"))
+            f.write(idx_arr.tobytes())
+        with open(amat_path, "w") as f:
+            f.writelines(" ".join("1" if v else "0" for v in row) + " \n"
+                         for row in amat_arr)
+        t = {}
+        t0 = time.perf_counter()
+        got_idx = native_ingest.load_idx(idx_path)
+        t["idx_native"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = Path(idx_path).read_bytes()
+        want_idx = np.frombuffer(data, np.uint8, offset=16).reshape(
+            INGEST_IDX)
+        t["idx_numpy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_amat = native_ingest.load_amat(amat_path, INGEST_AMAT[1])
+        t["amat_native"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_amat = np.loadtxt(amat_path, dtype=np.float32).reshape(
+            -1, INGEST_AMAT[1])
+        t["amat_numpy"] = time.perf_counter() - t0
+        mb = (Path(idx_path).stat().st_size / 1e6,
+              Path(amat_path).stat().st_size / 1e6)
+    check(np.array_equal(got_idx, idx_arr) and np.array_equal(got_idx,
+                                                              want_idx),
+          "the native IDX parser differs from numpy")
+    check(np.array_equal(got_amat, amat_arr)
+          and np.array_equal(got_amat, want_amat),
+          "the native .amat parser differs from numpy")
+    log(f"[ingest] g++ build + load {build_s:.3f} s; IDX {INGEST_IDX} "
+        f"({mb[0]:.1f} MB): native {t['idx_native'] * 1e3:.3f} ms, numpy "
+        f"frombuffer {t['idx_numpy'] * 1e3:.3f} ms; .amat {INGEST_AMAT} "
+        f"({mb[1]:.1f} MB): native {t['amat_native'] * 1e3:.3f} ms, numpy "
+        f"loadtxt {t['amat_numpy'] * 1e3:.3f} ms; arrays equal (host clock)")
+
+
 def _sharded_cfg():
     """Config 1 training at full width, fp32 (TF32 off) so that one rank
     and two agree to float rounding: the exact prior over N_BANK with LOO,
@@ -1587,11 +2005,13 @@ def main():
         return out
 
     kern = timed("kernel", kernel_phase, pl)
+    timed("ingest", ingest_phase)
     launches = timed("serve", serving_phase, pl)
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = timed("train", training_phase, pl,
                                              Path(snap))
         c3 = timed("config3", config3_phase, pl, Path(snap))
+        pix = timed("pixel", pixel_phase, pl, Path(snap))
         c5 = timed("config5", config5_phase, pl, Path(snap))
         c4 = timed("config4", config4_phase, pl, Path(snap))
         sharded = timed("sharded", sharded_phase, pl, Path(snap))
@@ -1603,10 +2023,12 @@ def main():
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
         "launches": (launches + train_launches + c3["config3_validation"]
                      + c3["config3_iwae"] + sum(c5.values())
-                     + sum(c4.values()) + sum(sharded.values())),
+                     + sum(c4.values()) + sum(sharded.values())
+                     + pix["pixel_train"] + pix["pixel_validation"]
+                     + pix["pixel_iwae"]),
         "launches_per_path": {"serving": launches, "training": train_launches,
-                              "cli_epoch": cli_launches, **c3, **c5, **c4,
-                              **sharded},
+                              "cli_epoch": cli_launches, **c3, **pix, **c5,
+                              **c4, **sharded},
         "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],

@@ -14,9 +14,10 @@ test}.amat``, Omniglot ``chardata.mat``, CelebA as
 ``celeba_{train,valid,test}.npz`` (key 'x', uint8 NHWC 64x64), or a generic
 ``{name}.npz`` with keys train_x/val_x/test_x[/labels]. With no files, a
 deterministic synthetic set with the same shapes and splits is used
-(data/synthetic.py) and ``source='synthetic'``. The JAX package parses IDX
-and .amat files with an optional native library; the port uses the numpy
-parsers that library falls back to, which give the same arrays.
+(data/synthetic.py) and ``source='synthetic'``. IDX and .amat files go
+through the native parsers of data/native_ingest.py (built with g++ at
+first use), with numpy only for what the format asks (a gzipped IDX file,
+a file the native parser rejects), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.data import native_ingest
 from exemplar_vae_tpu_torch.data.synthetic import synthetic_images
 
 # Fixed seed of the one-time Bernoulli binarization of val/test splits of
@@ -80,7 +82,12 @@ def dataset_meta(name: str):
 # --------------------------------------------------------------------------
 
 def _read_idx(path):
-    """Parse an IDX (MNIST-style) file, optionally gzipped."""
+    """Parse an IDX (MNIST-style) file, optionally gzipped: the native
+    reader, else (gzip, or a file it rejects) the Python parser, which
+    raises on a payload that is not uint8."""
+    arr = native_ingest.load_idx(path)
+    if arr is not None:
+        return arr
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         data = f.read()
@@ -125,8 +132,8 @@ def _load_static_mnist(data_dir):
              for s in ("train", "valid", "test")]
     if not all(os.path.exists(p) for p in paths):
         return None
-    return [np.loadtxt(p, dtype=np.float32).reshape(-1, 784).reshape(
-        -1, 28, 28, 1) for p in paths]
+    return [native_ingest.load_amat(p, n_cols=784).reshape(-1, 28, 28, 1)
+            for p in paths]
 
 
 def _load_generic_npz(data_dir, name):

@@ -8,14 +8,12 @@ from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.device import resolve_device
 from exemplar_vae_tpu_torch.models.conv_hvae import ConvHVAE
 from exemplar_vae_tpu_torch.models.hvae import HVAE
+from exemplar_vae_tpu_torch.models.pixel_hvae import PixelHVAE
 from exemplar_vae_tpu_torch.models.vae import VAE
 
-_MODELS = {"vae": VAE, "hvae_2level": HVAE, "convhvae_2level": ConvHVAE}
+_MODELS = {"vae": VAE, "hvae_2level": HVAE, "convhvae_2level": ConvHVAE,
+           "pixelhvae_2level": PixelHVAE}
 
-_LATER = {
-    "pixelhvae_2level": "the beyond-parity slice (PixelHVAE; ROADMAP.md, "
-                        "Queue 1, item 12)",
-}
 _ALIASES = {"hvae": "hvae_2level", "convhvae": "convhvae_2level",
             "conv_hvae": "convhvae_2level", "pixelhvae": "pixelhvae_2level",
             "pixel_hvae": "pixelhvae_2level"}
@@ -28,10 +26,6 @@ def create_model(cfg: Config, device="cuda", seed=None):
     dev = resolve_device(device)
     name = cfg.model_name.lower()
     name = _ALIASES.get(name, name)
-    if name in _LATER:
-        raise NotImplementedError(
-            f"model_name={cfg.model_name!r} is not ported yet: it comes with "
-            f"{_LATER[name]}")
     if name not in _MODELS:
         raise ValueError(f"unknown model_name: {cfg.model_name}")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)

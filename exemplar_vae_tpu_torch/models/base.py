@@ -7,7 +7,9 @@ Every model exposes the same method surface:
   encode_top(x)              -> (mean, logvar) of the prior-level latent
   encode_top_mean(x)         -> mean only (exemplar-bank caching)
   generate_from_top(z, eps=..., generator=...) -> decoder means (eps: the
-                                two-level models' z1 noise)
+                                two-level models' z1 noise); the PixelHVAE
+                                returns samples, its eps the pair (z1
+                                noise, per-pixel uniforms)
   log_p_z_top(z, ...)        -> prior log-density {standard, vampprior,
                                 exemplar_prior}
 """

@@ -32,10 +32,10 @@ from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
 
 
 class TwoLevelMLPCore:
-    """The two-level machinery shared by HVAE and ConvHVAE: q(z1 | x, z2)
-    from x-side features (``q_z1_cache``, the model's own) and z2, p(z1 |
-    z2), the two-level forward and generation. Attribute names are the flax
-    param-tree names."""
+    """The two-level machinery shared by HVAE, ConvHVAE and PixelHVAE:
+    q(z1 | x, z2) from x-side features (``q_z1_cache``, the model's own) and
+    z2, p(z1 | z2), the two-level forward and generation. Attribute names
+    are the flax param-tree names."""
 
     def _setup_z1_nets(self, hx_dim: int, dt, g):
         """q(z1 | x, z2) over ``hx_dim`` x-side features, and p(z1 | z2)."""
@@ -107,8 +107,13 @@ class TwoLevelMLPCore:
         # sampled lower-level KL: E_q[log q(z1|x,z2) - log p(z1|z2)]
         extra_kl = (log_normal_diag(z1, q1_mean, q1_logvar)
                     - log_normal_diag(z1, p1_mean, p1_logvar))
-        x_mean, x_logvar = self.decode(z1, z2)
+        x_mean, x_logvar = self.decode_x(x, z1, z2)
         return ForwardOut(z2, q2_mean, q2_logvar, x_mean, x_logvar, extra_kl)
+
+    def decode_x(self, x, z1, z2):
+        """The likelihood params of the observed x given (z1, z2): the
+        decoder's, which reads x only in the PixelHVAE (teacher forcing)."""
+        return self.decode(z1, z2)
 
     def generate_from_top(self, z2, *, eps=None, generator=None):
         """Decoder means of z2 with z1 ~ p(z1 | z2); ``eps`` (B, z1)."""

@@ -1,5 +1,4 @@
-"""NN primitives (counterpart of exemplar_vae_tpu/models/layers.py, without
-the PixelCNN ``MaskedConv2d``).
+"""NN primitives (counterpart of exemplar_vae_tpu/models/layers.py).
 
 Parameters keep the flax names and layouts: a dense ``kernel`` is (in, out)
 and is applied as ``x @ kernel + bias``; a conv kernel is HWIO
@@ -156,7 +155,7 @@ def conv_transpose_same(x, w_hwio, b, stride):
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with a 1x1 kernel (HWIO (1, 1, in, out)), LeCun
-    init: the ConvHVAE's likelihood heads."""
+    init: the ConvHVAE's and PixelHVAE's likelihood heads."""
 
     def __init__(self, c_in: int, features: int, *, dtype=None,
                  generator=None):
@@ -204,6 +203,35 @@ class GatedConv2d(_GatedConvBase):
 class GatedConvTranspose2d(_GatedConvBase):
     """Gated transposed convolution, SAME padding (output = input * s)."""
     _conv = staticmethod(conv_transpose_same)
+
+
+class MaskedConv2d(nn.Module):
+    """PixelCNN masked convolution, stride 1, SAME padding, He init.
+
+    The mask is spatial (all input channels of a pixel together): 'A' zeroes
+    the centre tap and everything after it in raster order (the first
+    layer: pixel i must not see x_i), 'B' keeps the centre tap. The HWIO
+    kernel is masked in fp32, then cast to the compute dtype; the mask
+    survives the permute to OIHW because neither F.conv2d nor lax.conv
+    flips the kernel."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=(3, 3),
+                 mask_type: str = "B", *, dtype=None, generator=None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.kernel = nn.Parameter(he_init((kh, kw, c_in, features),
+                                           generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+        mask = torch.ones((kh, kw, 1, 1))
+        mask[kh // 2, kw // 2 + (1 if mask_type == "B" else 0):] = 0.0
+        mask[kh // 2 + 1:] = 0.0
+        self.register_buffer("mask", mask, persistent=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype or self.kernel.dtype
+        return conv_same(x.to(dt), (self.kernel * self.mask).to(dt),
+                         self.bias.to(dt), (1, 1))
 
 
 def compute_dtype(cfg):

@@ -11,16 +11,22 @@ Three programs:
 * ``score_nll``          - per-point IWAE NLL of one chunk (the reference
                            eval protocol: full bank, no LOO).
 
-``ServingBundle.load`` reads a bundle that the JAX package exported
-(``bundle.json`` and ``arrays.npz``: weights and the eval bank), ignores its
-StableHLO ``.bin`` programs, builds the port's model from the manifest's
-config and serves the three programs on the card.
+``export_serving_bundle`` writes a bundle in the JAX package's layout
+(``bundle.json`` and ``arrays.npz``: weights and the eval bank) without the
+StableHLO ``.bin`` programs, which only ``jax.export`` can write: its
+manifest says ``"platforms": []`` and ``"exported_by":
+"exemplar_vae_tpu_torch"``, and the JAX package's ``ServingBundle.load``,
+which needs the programs, refuses it. ``ServingBundle.load`` reads a bundle
+of either package (ignoring the ``.bin`` programs of a JAX one), builds the
+port's model from the manifest's config and serves the three programs on
+the card.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,14 +39,16 @@ from exemplar_vae_tpu_torch.train import sampling
 from exemplar_vae_tpu_torch.train.evaluation import (as_tensor, make_iwae_fn,
                                                      model_device)
 from exemplar_vae_tpu_torch.train.loss import Bank
-from exemplar_vae_tpu_torch.weights import params_from_keystr
+from exemplar_vae_tpu_torch.weights import params_from_keystr, params_to_keystr
 
 
 def make_serving_fns(model, cfg: Config, n_effective: int, n_gen: int,
                      rounds: int, r: int):
     """(generate, reference_generate, score_nll) for ``model`` at fixed
-    sizes. Noise is drawn from ``generator`` or injected (``idx``/``eps``),
-    in the draw order of the JAX programs."""
+    sizes. Noise is drawn from ``generator`` or injected (``idx``/``eps``,
+    and ``eps1``: a two-level model's z1 noise, for the PixelHVAE the pair
+    (z1 noise, per-pixel uniforms)), in the draw order of the JAX
+    programs."""
 
     @torch.no_grad()
     def generate(bank_means, *, generator=None, idx=None, eps=None,
@@ -81,8 +89,51 @@ def make_serving_fns(model, cfg: Config, n_effective: int, n_gen: int,
         score_nll if cfg.prior == "exemplar_prior" else score_nll_no_bank)
 
 
+def export_serving_bundle(model, cfg: Config, out_dir: str, *,
+                          bank_means=None, data_idx=None, valid=None,
+                          n_effective: Optional[int] = None, n_gen: int = 25,
+                          ref_batch: int = 16, score_chunk: int = 16,
+                          s_total: int = 64, r: int = 16) -> dict:
+    """Write ``model``'s weights (``"param:" + keystr`` keys) and, for an
+    exemplar prior, its eval bank (from make_eval_bank_fn: full bank, no
+    LOO) into ``out_dir``/arrays.npz, and the manifest into bundle.json;
+    returns the manifest. The bundle has no programs, so it loads in the
+    port only (``ServingBundle.load``)."""
+    arrays = params_to_keystr(model.state_dict(), "param:")
+    if cfg.prior == "exemplar_prior":
+        if bank_means is None or data_idx is None or valid is None:
+            raise ValueError("an exemplar-prior bundle needs the eval bank: "
+                             "bank_means, data_idx and valid")
+        n_effective = int(n_effective if n_effective is not None
+                          else bank_means.shape[0])
+        arrays.update(bank_means=as_tensor(bank_means, "cpu").numpy(),
+                      data_idx=as_tensor(data_idx, "cpu", torch.int32).numpy(),
+                      valid=as_tensor(valid, "cpu", torch.bool).numpy())
+    else:
+        n_effective = 0
+    r = min(r, s_total)
+    c, h, w = (int(s) for s in cfg.input_size)
+    # continuous models score raw uint8 (dequantized inside preprocessing)
+    x_dtype = np.uint8 if cfg.input_type == "continuous" else np.float32
+    manifest = {
+        "model_name": cfg.model_name, "prior": cfg.prior,
+        "input_type": cfg.input_type, "image_shape_nhwc": [h, w, c],
+        "x_dtype": np.dtype(x_dtype).name,
+        "n_gen": n_gen, "ref_batch": ref_batch, "score_chunk": score_chunk,
+        "s_total": s_total, "r": r, "rounds": max(-(-s_total // r), 1),
+        "n_effective": n_effective, "platforms": [],
+        "exported_by": "exemplar_vae_tpu_torch",
+        "config": json.loads(cfg.to_json()),
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "arrays.npz"), **arrays)
+    with open(os.path.join(out_dir, "bundle.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest
+
+
 class ServingBundle:
-    """A JAX-exported serving bundle, served by the port.
+    """A serving bundle (exported by either package), served by the port.
 
     >>> b = ServingBundle.load("serving/")          # on the card
     >>> imgs = b.generate(generator=torch.Generator("cuda").manual_seed(0))

@@ -6,7 +6,8 @@ Protocol: test NLL = -[logsumexp_s (log p(x|z_s) + log p(z_s) - log q(z_s|x))
 encoded once. Chunks are (t test points) x (r samples) per round with an
 online-LSE carry over rounds, as in the JAX package. The encode-once fast
 path runs what depends on x alone (q(z|x); for the two-level models q(z2|x)
-and the x-side features of q(z1|x,z2)) once per chunk; the generic path
+and the x-side features of q(z1|x,z2)) once per chunk, and gives the
+PixelHVAE's teacher-forced decoder the repeated x; the generic path
 (``force_generic``) runs the whole forward per round, on the same noise.
 """
 
@@ -152,7 +153,7 @@ def make_iwae_fn(model, cfg: Config, force_generic: bool = False):
         p1_mean, p1_logvar = model.p_z1(z2)
         extra_kl = (log_normal_diag(z1, q1_mean, q1_logvar)
                     - log_normal_diag(z1, p1_mean, p1_logvar))
-        x_mean, x_logvar = model.decode(z1, z2)
+        x_mean, x_logvar = model.decode_x(x_rep, z1, z2)
         re = reconstruction_log_lik(x_rep, x_mean, x_logvar, cfg.input_type)
         log_q = log_normal_diag(z2, mu_rep, lv_rep)
         return re - (log_q - eval_log_p_top(model, z2, cfg, bank) + extra_kl)

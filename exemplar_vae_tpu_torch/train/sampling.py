@@ -8,7 +8,9 @@ generation uses a chosen exemplar instead of a sampled one.
 Draws come in the JAX key-split order: the exemplar (or pseudo-input) index
 first, then the top latent's noise, then (two-level models) the noise of z1
 ~ p(z1|z2). Each can be injected (``idx``, ``eps``, ``eps1``) so that tests
-replay JAX's draws; otherwise they come from ``generator``.
+replay JAX's draws; otherwise they come from ``generator``. For the
+PixelHVAE ``eps1`` is the pair (z1 noise, per-pixel uniforms) and the
+results are its autoregressive samples.
 """
 
 from __future__ import annotations

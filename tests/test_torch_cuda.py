@@ -399,3 +399,158 @@ def test_mesh_over_nccl_on_one_rank(dev, tmp_path):
         assert torch.equal(sharded_row_gather(ex, rows, mesh), ex[rows])
     finally:
         shutdown()
+
+
+def _pixel(dev, features=64, layers=4, input_type="binary", seed=0):
+    """A PixelHVAE (hidden 32, z1 = z2 = 8, 28x28), on the CPU and a copy
+    on ``dev``."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    cfg = Config(model_name="pixelhvae_2level", hidden_size=32, z1_size=8,
+                 z2_size=8, input_type=input_type,
+                 dynamic_binarization=False, number_components=300,
+                 pixelcnn_features=features, pixelcnn_layers=layers,
+                 prior_block_n=128, exact_reencode_chunk=0)
+    cpu = create_model(cfg, device="cpu", seed=seed)
+    card = create_model(cfg, device=dev, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+def test_pixelhvae_fp32_forward_on_card_matches_cpu(dev):
+    """The default masked stack (64 features, 4 'B' layers) at fp32 on the
+    card (cuDNN, TF32 off) against the CPU, same input and noise."""
+    _, cpu, card = _pixel(dev)
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand((16, 28, 28, 1), generator=g) < 0.3).float()
+    eps = (torch.randn((16, 8), generator=g), torch.randn((16, 8), generator=g))
+    with torch.no_grad():
+        want = cpu(x, eps=eps)
+        got = card(x.to(dev), eps=tuple(e.to(dev) for e in eps))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def _parting_rows(model, got, want, u, z2, eps1, margin=1e-5):
+    """Rows in which binary samples differ; each must part at a pixel whose
+    uniform lies within ``margin`` of its mean (decoded teacher-forced from
+    ``want``, which shares the pixels before the first difference)."""
+    b = got.shape[0]
+    with torch.no_grad():
+        p1_mean, p1_logvar = model.p_z1(z2)
+        z1 = p1_mean + torch.exp(0.5 * p1_logvar) * eps1
+        mean = model.decode(want, z1, z2)[0].reshape(b, -1).cpu()
+    got, want, u = (t.reshape(t.shape[0], -1).cpu() for t in (got, want, u))
+    rows = 0
+    for row in range(b):
+        diff = torch.nonzero(got[row] != want[row]).flatten()
+        if diff.numel():
+            i = int(diff[0])
+            assert abs(float(u[i, row]) - float(mean[row, i])) < margin
+            rows += 1
+    return rows
+
+
+@pytest.mark.cuda
+def test_pixel_samplers_on_card(dev):
+    """Both samplers on the card from the same injected noise: binary
+    samples, the crop sampler equal to the full-canvas oracle and to the
+    CPU's crop sampler (a row may part only where u lies within 1e-5 of
+    the mean); no kernel launch."""
+    _, cpu, card = _pixel(dev, features=16, layers=2)
+    g = torch.Generator().manual_seed(1)
+    z2 = torch.randn((8, 8), generator=g)
+    eps1 = torch.randn((8, 8), generator=g)
+    u = torch.rand((784, 8, 1), generator=g)
+    noise = (eps1.to(dev), u.to(dev))
+    before = tpl.pairwise_lse.launches
+    crop = card.generate_from_top(z2.to(dev), eps=noise)
+    naive = card.generate_from_top_naive(z2.to(dev), eps=noise)
+    assert tpl.pairwise_lse.launches == before
+    assert crop.shape == (8, 28, 28, 1) and crop.device.type == dev.type
+    assert set(torch.unique(crop).tolist()) <= {0.0, 1.0}
+    _parting_rows(card, crop, naive, u, z2.to(dev), eps1.to(dev))
+    on_cpu = cpu.generate_from_top(z2, eps=(eps1, u))
+    _parting_rows(cpu, crop.cpu(), on_cpu, u, z2, eps1)
+
+
+@pytest.mark.cuda
+def test_pixel_exact_step_through_kernel(dev):
+    """One exact-prior PixelHVAE step on the card (the default masked
+    stack, a 300-row bank, LOO): the kernel prior against the scan prior
+    from the same params and noise, one launch; loss rtol 1e-5, gradients
+    within GRAD_REL of their largest element."""
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.train import steps
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    cfg, cpu, _ = _pixel(dev)
+    g = torch.Generator().manual_seed(2)
+    bank_x = (torch.rand((300, 28, 28, 1), generator=g) < 0.3).float().to(dev)
+    bank = Bank(images=bank_x, data_idx=torch.arange(300, dtype=torch.int32,
+                                                     device=dev),
+                valid=torch.ones(300, dtype=torch.bool, device=dev),
+                cache_means=None, n_effective=300)
+    rows = torch.arange(0, 300, 15, device=dev)
+    eps = (torch.randn((20, 8), generator=g).to(dev),
+           torch.randn((20, 8), generator=g).to(dev))
+    out = {}
+    for kernel in (True, False):
+        c = cfg.replace(use_pallas_prior=kernel)
+        model = create_model(c, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        before = tpl.pairwise_lse.launches
+        _, aux = steps.make_train_step(c)(
+            steps.init_train_state(model, c), bank_x[rows],
+            rows.to(torch.int32), bank, 1.0, eps=eps)
+        assert tpl.pairwise_lse.launches == before + kernel
+        out[kernel] = (float(aux["loss"]),
+                       {n: p.grad for n, p in model.named_parameters()})
+    (lk, gk), (ls, gs) = out[True], out[False]
+    assert np.isfinite(lk) and lk == pytest.approx(ls, rel=1e-5)
+    for name, a in gk.items():
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a - gs[name]).abs().max())
+        assert err <= GRAD_REL * float(gs[name].abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vae", "pixelhvae_2level"])
+def test_export_load_round_trip_on_card(dev, name, tmp_path):
+    """export_serving_bundle of a model on the card, ServingBundle.load on
+    the card: score_nll and generate equal the live functions' bitwise on
+    the same noise (the same code on the same card)."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.serve import (ServingBundle,
+                                              export_serving_bundle,
+                                              make_serving_fns)
+    from exemplar_vae_tpu_torch.train.evaluation import make_eval_bank_fn
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    cfg = Config(model_name=name, hidden_size=32, z1_size=8, z2_size=8,
+                 pixelcnn_features=16, pixelcnn_layers=2)
+    model = create_model(cfg, device=dev, seed=1).eval()
+    rng = np.random.default_rng(0)
+    bank_x = (rng.random((300, 28, 28, 1)) < 0.3).astype(np.float32)
+    eb = make_eval_bank_fn(model, cfg)(Bank(
+        images=bank_x, data_idx=np.arange(300, dtype=np.int32),
+        valid=np.ones(300, bool), cache_means=None, n_effective=300))
+    export_serving_bundle(model, cfg, str(tmp_path), bank_means=eb.cache_means,
+                          data_idx=eb.data_idx, valid=eb.valid, n_gen=4,
+                          score_chunk=4, s_total=16, r=8)
+    b = ServingBundle.load(str(tmp_path), device=dev)
+    assert next(b.model.parameters()).device.type == dev.type
+    gen, _, score = make_serving_fns(model, cfg, 300, 4, 2, 8)
+    g = torch.Generator(dev).manual_seed(3)
+    two = name != "vae"
+    eps = ((torch.randn((2, 32, 8), generator=g, device=dev),) * 2 if two
+           else torch.randn((2, 32, 8), generator=g, device=dev))
+    want = score(bank_x[:4], eb.cache_means, eb.data_idx, eb.valid, eps=eps)
+    assert np.array_equal(b.score_nll(bank_x[:4], eps=[eps])[1],
+                          want.cpu().numpy())
+    idx = np.array([0, 5, 17, 299])
+    e = torch.randn((4, 8), generator=g, device=dev)
+    e1 = ((e, torch.rand((784, 4, 1), generator=g, device=dev)) if two
+          else None)
+    assert torch.equal(b.generate(idx=idx, eps=e, eps1=e1),
+                       gen(eb.cache_means, idx=idx, eps=e, eps1=e1))

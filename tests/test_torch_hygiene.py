@@ -63,6 +63,7 @@ def _entry_points():
     from exemplar_vae_tpu_torch.classify_mnist import main as classify
     from exemplar_vae_tpu_torch.config import Config
     from exemplar_vae_tpu_torch.device import resolve_device
+    from exemplar_vae_tpu_torch.export_serving import main as export
     from exemplar_vae_tpu_torch.models import create_model
     from exemplar_vae_tpu_torch.main import main
     from exemplar_vae_tpu_torch.serve import ServingBundle
@@ -80,12 +81,13 @@ def _entry_points():
         "classify_mnist": lambda: classify(["--train_first",
                                             "--dataset_name", "synthetic",
                                             "--training_set_size", "8"]),
+        "export_serving": lambda: export(["--vae_dir", "no-such-run"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "create_model",
                                   "ServingBundle.load", "Experiment", "main",
-                                  "classify_mnist"])
+                                  "classify_mnist", "export_serving"])
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

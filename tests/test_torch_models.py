@@ -121,10 +121,14 @@ def test_prior_log_var_clamp(floor):
 @pytest.mark.parametrize("name", ["pixelhvae_2level", "pixelhvae",
                                   "pixel_hvae"])
 def test_unported_families_name_their_slice(name):
-    """PixelHVAE, under each of its names, raises naming its ROADMAP item
-    (HVAE and ConvHVAE are ported: tests/test_torch_two_level.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        create_model(Config(model_name=name), device="cpu")
+    """Every family is ported: PixelHVAE, which this test saw refused
+    before its slice, builds under each of its names (its parity tests:
+    tests/test_torch_pixel_hvae.py)."""
+    from exemplar_vae_tpu_torch.models.pixel_hvae import PixelHVAE
+    tm = create_model(Config(model_name=name, hidden_size=8, z1_size=2,
+                             z2_size=2, pixelcnn_features=4,
+                             pixelcnn_layers=1), device="cpu")
+    assert isinstance(tm, PixelHVAE)
 
 
 def test_seeded_init_is_reproducible():

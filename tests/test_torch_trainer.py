@@ -288,8 +288,6 @@ def test_vamp_use_training_data_init(tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    pytest.param(dict(model_name="pixelhvae_2level"), NotImplementedError,
-                 "item 12", id="kw0-item 12"),
     # the mesh (item 11) is ported: without a process group a mesh of 2
     # raises and names torchrun, and never runs on one process
     pytest.param(dict(mesh_shape=(2,)), RuntimeError, "torchrun",
