@@ -126,13 +126,25 @@ Phases; any failure exits non-zero before the result lines:
    10 points (B = 5000 rows a round, one launch per round), through the
    kernel and through the scan on the same noise within rtol 1e-5, its
    time, peak memory and device time by group;
-11. bank sharding: torchrun starts SHARD_W = 2 child processes of this
-   script (``--sharded-rank``), gloo ranks sharing the card, which run one
-   exact-prior Config 1 train step at full width (fp32, batch 100, LOO)
-   with the bank split 25 000 / 25 000, from the params and injected noise
-   of the same step on one process here: each rank's loss within rtol 1e-5
-   and each gradient within 1e-4 of its largest element, one kernel launch
-   per rank (B = 100, N = 25 000, LOO); the backend and world size printed;
+11. [sharded], data-parallel training on the mesh: torchrun starts
+   SHARD_W = 2 child processes of this script (``--sharded-rank``), gloo
+   ranks sharing the card, each training on TRAIN_B / SHARD_W = 50 rows of
+   every batch and holding half the bank, against one process here from
+   the same params and injected noise. (a) Config 1's exact-prior step at
+   full width (fp32, batch 100, LOO), the bank split 25 000 / 25 000: each
+   rank's loss (the ranks' shares summed) within rtol 1e-5 and each
+   gradient within 1e-4 of its largest element, one kernel launch per rank
+   (B = 100 after the gather of z, N = 25 000, LOO); the backend and world
+   size printed. (b) Config 4's approximate step at full width (fp32, TF32
+   off): [config4]'s 200 000 images, the ConvHVAE, K = 10 per row, batch
+   100, the bank split 100 000 / 100 000; the parent refreshes the cache of
+   all 200 000 rows and gives the ranks its params, noise and cache; each
+   rank's (100, 10) kNN selection must equal one process's (a near tie is
+   printed with both distances and fails the phase), then its loss and
+   gradients as in (a), and no kernel launch. (c) For (b), per rank and for
+   one process: the rows the batch forward and the re-encode saw (50 and
+   500 against 100 and 1000) and the device ms of a profiled step (two
+   ranks share one card: no sharding speed);
 12. the kernels line, the card's name and power limit, and the ok line.
 """
 
@@ -166,7 +178,10 @@ N_BANK, D = 50_000, 40
 # 10 points per chunk at 64x64x3 and MB = 500: B = 5000 rows per round)
 C4_N, C4_VAL, C4_T, C4_CHUNK = 200_000, 256, 10, 4096
 # the sharded phase: ranks sharing the card, each holding N_BANK / SHARD_W
+# of Config 1's bank (C4_N / SHARD_W of Config 4's) and TRAIN_B / SHARD_W
+# rows of every batch; Config 4's images and config as [config4] left them
 SHARD_W = 2
+C4_X_FILE, C4_CFG_FILE = "c4_train_x.npy", "c4_cfg.json"
 # (name, B, N, LOO) of every pairwise_lse call the paths below make:
 # serving and Config 3's IWAE (B = points x MB = N), the train step,
 # validation batches of test_batch_size = 100 and their tail (256 images:
@@ -1074,6 +1089,9 @@ def config4_phase(pl, snap_dir):
     m32.load_state_dict(exp.model.state_dict())
     m32.eval()
     bank, test_x = exp.bank, exp.test_x
+    # the [sharded] phase's Config 4 step reads the same images from here
+    np.save(snap_dir / C4_X_FILE, exp.train_x.cpu().numpy())
+    (snap_dir / C4_CFG_FILE).write_text(exp.cfg.to_json())
     del exp, run, prof
     torch.cuda.empty_cache()
     eb = make_eval_bank_fn(m32, c32)(bank)
@@ -1471,9 +1489,9 @@ def ingest_phase():
 
 
 def _sharded_cfg():
-    """Config 1 training at full width, fp32 (TF32 off) so that one rank
-    and two agree to float rounding: the exact prior over N_BANK with LOO,
-    the bank encoded in one piece."""
+    """Config 1 training at full width, fp32 (TF32 off) so that one process
+    and the ranks agree to float rounding: the exact prior over N_BANK with
+    LOO, the bank encoded in one piece."""
     from exemplar_vae_tpu_torch.config import Config
     return Config(dataset_name="synthetic", model_name="vae",
                   prior="exemplar_prior", number_components=N_BANK,
@@ -1482,22 +1500,64 @@ def _sharded_cfg():
                   exact_remat=False, compute_dtype="float32", seed=14)
 
 
+def _sharded_c4_cfg(snap_dir):
+    """[config4]'s Config 4 (ConvHVAE, approximate prior K = 10 per row over
+    C4_N, batch 100, bank chunks of C4_CHUNK) at fp32, TF32 off."""
+    from exemplar_vae_tpu_torch.config import Config
+    return Config.from_json((snap_dir / C4_CFG_FILE).read_text()).replace(
+        compute_dtype="float32")
+
+
 def _sharded_bank(dev):
     from exemplar_vae_tpu_torch.data.synthetic import synthetic_images
     return torch.from_numpy(synthetic_images(N_BANK, 28, 28, 1,
                                              seed=1)[0]).to(dev)
 
 
+def _watch_rows(model):
+    """The rows the model's batch forward (a pre-hook) and its re-encodes
+    (encode_top_mean) see, appended to lists as they run."""
+    seen = {"forward": [], "reencode": []}
+    model.register_forward_pre_hook(
+        lambda _, args: seen["forward"].append(args[0].shape[0]))
+    encode = model.encode_top_mean
+
+    def counted(x):
+        seen["reencode"].append(x.shape[0])
+        return encode(x)
+
+    model.encode_top_mean = counted
+    return seen
+
+
+def _device_split(prof):
+    """(device ms, of it the copies' ms) of a profile_ms result: gloo
+    stages a CUDA tensor through the host, as Memcpy events."""
+    return prof[1], sum(t for name, t, _ in prof[2] if "Memcpy" in name)
+
+
+def _copy_rows(seen):
+    return {k: list(v) for k, v in seen.items()}
+
+
+def _step_grads(model):
+    return {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+
 def sharded_child(work):
     """One rank of the [sharded] phase (torchrun sets RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR/PORT): gloo ranks sharing cuda:0, each holding
-    N_BANK / SHARD_W rows of the bank, one train step from the parent's
-    params and noise; writes rank<r>.pt into ``work``."""
+    LOCAL_RANK, MASTER_ADDR/PORT): gloo ranks sharing cuda:0, data-parallel
+    (TRAIN_B / SHARD_W rows of each batch), each holding 1 / SHARD_W of the
+    bank. (a) One Config 1 exact step from the parent's params and noise;
+    (b) one Config 4 approximate step from the parent's params, noise and
+    cache, its kNN selection recorded, then a profiled step. Writes
+    rank<r>.pt into ``work``."""
     import torch.distributed as dist
 
     from exemplar_vae_tpu_torch.device import resolve_device
     from exemplar_vae_tpu_torch.models import create_model
     from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
+    from exemplar_vae_tpu_torch.parallel import sharded_knn
     from exemplar_vae_tpu_torch.parallel.mesh import (create_mesh,
                                                       init_distributed,
                                                       shutdown)
@@ -1515,9 +1575,18 @@ def sharded_child(work):
             f"world_size {dist.get_world_size()}, device {mesh.device}, "
             f"{'' if banned_modules() == [] else 'JAX LOADED '}"
             f"kernel build {pl.build():.2f} s (reused from _build/)")
+
+        def terms(aux):
+            """The step's loss, RE and KL: the ranks' shares, summed."""
+            t = mesh.all_reduce(torch.stack([aux[k] for k in
+                                             ("loss", "re", "kl")]))
+            return [float(v) for v in t]
+
+        # (a) Config 1, exact prior
         inp = torch.load(work / "inputs.pt", weights_only=True)
         model = create_model(cfg, device=dev)
         model.load_state_dict(inp["params"])
+        seen_a = _watch_rows(model)
         bank_x = _sharded_bank(dev)
         lo, hi = mesh.shard_range(N_BANK)
         bank = Bank(images=bank_x[lo:hi],
@@ -1528,38 +1597,169 @@ def sharded_child(work):
         rows = inp["rows"].to(dev)
         step = make_train_step(cfg, mesh=mesh)
         torch.cuda.synchronize()
+        # ---- the path's step: counts 0 just before, read after ----
         pl.pairwise_lse.launches = 0
         t0 = time.perf_counter()
         _, aux = step(init_train_state(model, cfg), bank_x[rows],
                       rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
                       eps=inp["eps"].to(dev))
-        loss = float(aux["loss"])
+        loss_a = terms(aux)
         step_ms = (time.perf_counter() - t0) * 1e3
         launches = pl.pairwise_lse.launches
-        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        # ---- end ----
+        out = {"loss": loss_a[0], "launches": launches, "step_ms": step_ms,
+               "grads": _step_grads(model), "rows": _copy_rows(seen_a)}
         # a second step, outside the count: the first pays the process's
         # first cuBLAS, kernel-module and collective calls
         t0 = time.perf_counter()
         _, aux = step(init_train_state(model, cfg), bank_x[rows],
                       rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
                       eps=inp["eps"].to(dev))
-        float(aux["loss"])
-        step2_ms = (time.perf_counter() - t0) * 1e3
-        torch.save({"loss": loss, "launches": launches, "step_ms": step_ms,
-                    "step2_ms": step2_ms,
-                    "backend": dist.get_backend(),
-                    "world_size": dist.get_world_size(),
-                    "banned": banned_modules(), "grads": grads},
-                   work / f"rank{mesh.rank}.pt")
+        terms(aux)
+        out["step2_ms"] = (time.perf_counter() - t0) * 1e3
+        del model, bank_x, bank, step
+        torch.cuda.empty_cache()
+
+        # (b) Config 4, approximate prior per row
+        c4 = torch.load(work / "c4_inputs.pt", weights_only=True)
+        cfg4 = _sharded_c4_cfg(work.parent).replace(mesh_shape=(SHARD_W,))
+        images = np.load(work.parent / C4_X_FILE, mmap_mode="r")
+        lo, hi = mesh.shard_range(C4_N)
+        rows = c4["rows"]
+        x = torch.from_numpy(images[rows.numpy()]).to(dev)
+        shard = Bank(images=torch.from_numpy(np.ascontiguousarray(
+            images[lo:hi])).to(dev),
+            data_idx=torch.arange(lo, hi, dtype=torch.int32, device=dev),
+            valid=torch.ones(hi - lo, dtype=torch.bool, device=dev),
+            cache_means=c4["cache"][lo:hi].to(dev), n_effective=C4_N)
+        model = create_model(cfg4, device=dev)
+        model.load_state_dict(c4["params"])
+        seen_b = _watch_rows(model)
+        u, eps = c4["u"].to(dev), tuple(e.to(dev) for e in c4["eps"])
+        idx = rows.to(dev, torch.int32)
+        selections = []
+        select = sharded_knn.sharded_knn_select
+
+        def recording(*args, **kw):
+            sel = select(*args, **kw)
+            selections.append(sel.cpu())
+            return sel
+
+        step = make_train_step(cfg4, mesh=mesh)
+        sharded_knn.sharded_knn_select = recording
+        try:
+            # ---- the path's step: counts 0 just before, read after ----
+            pl.pairwise_lse.launches = 0
+            _, aux = step(init_train_state(model, cfg4), x, idx, shard, 1.0,
+                          u=u, eps=eps)
+            loss_b = terms(aux)
+            launches_b = pl.pairwise_lse.launches
+            # ---- end ----
+        finally:
+            sharded_knn.sharded_knn_select = select
+        out["c4"] = {"loss": loss_b[0], "launches": launches_b,
+                     "selection": selections[0],
+                     "grads": _step_grads(model), "rows": _copy_rows(seen_b)}
+        prof = profile_ms(lambda: terms(step(
+            init_train_state(model, cfg4), x, idx, shard, 1.0, u=u,
+            eps=eps)[1]))
+        out["c4"]["device_ms"], out["c4"]["copy_ms"] = _device_split(prof)
+        out["c4"]["wall_ms"] = prof[0]
+        out.update(backend=dist.get_backend(),
+                   world_size=dist.get_world_size(), banned=banned_modules())
+        torch.save(out, work / f"rank{mesh.rank}.pt")
     finally:
         shutdown()
 
 
+def _sharded_c4_reference(snap_dir, work):
+    """Part (b)'s one-process reference: Config 4 at fp32 from seeded params
+    over [config4]'s images, the cache refresh of all C4_N rows, one step's
+    kNN selection (the batch's q(z2|x) means against the cache), loss and
+    gradients, and a profiled step's device ms; writes the ranks' inputs
+    (params, rows, noise, cache) into ``work``."""
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops.knn import knn_indices
+    from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_cache_refresh,
+                                                    make_train_step)
+
+    cfg = _sharded_c4_cfg(snap_dir)
+    dev = torch.device("cuda")
+    images = torch.from_numpy(np.load(snap_dir / C4_X_FILE)).to(dev)
+    check(tuple(images.shape) == (C4_N, 64, 64, 3) and cfg.input_type ==
+          "continuous", f"[config4]'s images {tuple(images.shape)}")
+    model = create_model(cfg, device=dev, seed=0)
+    params = {k: v.cpu() for k, v in model.state_dict().items()}
+    bank = Bank(images=images,
+                data_idx=torch.arange(C4_N, dtype=torch.int32, device=dev),
+                valid=torch.ones(C4_N, dtype=torch.bool, device=dev),
+                cache_means=None, n_effective=C4_N)
+    refresh = make_cache_refresh(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = refresh(images)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    refresh_gb = torch.cuda.max_memory_allocated() / 1e9
+    bank = bank._replace(cache_means=cache)
+    g = torch.Generator("cuda").manual_seed(12)
+    rows = torch.randperm(C4_N, generator=g, device=dev)[:TRAIN_B]
+    u = torch.rand((TRAIN_B, 64, 64, 3), generator=g, device=dev)
+    eps = tuple(torch.randn((TRAIN_B, n), generator=g, device=dev)
+                for n in (cfg.z2_size, cfg.z1_size))
+    torch.save({"params": params, "rows": rows.cpu(), "u": u.cpu(),
+                "eps": tuple(e.cpu() for e in eps), "cache": cache.cpu()},
+               work / "c4_inputs.pt")
+    with torch.no_grad():
+        x = preprocess_batch(images[rows], input_type=cfg.input_type,
+                             dynamic_binarization=cfg.dynamic_binarization,
+                             train=True, u=u)
+        q = model.encode_top(x)[0]
+    selection = knn_indices(q, cache, cfg.approximate_k, valid=bank.valid)
+    seen = _watch_rows(model)
+    step = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _, aux = step(init_train_state(model, cfg), images[rows],
+                  rows.to(torch.int32), bank, 1.0, u=u, eps=eps)
+    loss = float(aux["loss"])
+    step_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref = {"loss": loss, "grads": _step_grads(model), "rows": _copy_rows(seen),
+           "selection": selection.cpu(), "q": q, "cache": cache,
+           "refresh_ms": refresh_ms, "refresh_gb": refresh_gb,
+           "step_gb": step_gb}
+    prof = profile_ms(lambda: float(step(
+        init_train_state(model, cfg), images[rows], rows.to(torch.int32),
+        bank, 1.0, u=u, eps=eps)[1]["loss"]))
+    ref["device_ms"], ref["copy_ms"] = _device_split(prof)
+    ref["wall_ms"] = prof[0]
+    return ref
+
+
+def _check_grads(tag, got, want, dev):
+    """Each gradient within GRAD_REL of its largest element; the worst
+    (name, share)."""
+    worst = ("", -1.0)
+    for name, w in want.items():
+        w = w.to(dev)
+        e = float((got[name].to(dev) - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        check(e <= GRAD_REL, f"{tag} gradient {name}: {e:.3g} of its "
+              f"largest element > {GRAD_REL}")
+        worst = max(worst, (name, e), key=lambda t: t[1])
+    return worst
+
+
 def sharded_phase(pl, snap_dir):
-    """Part B on the card: one exact-prior Config 1 train step at full width
-    on SHARD_W gloo ranks sharing the card (torchrun child processes of this
-    script), the bank split 25 000 / 25 000, against the same step on one
-    process from the same params and injected noise."""
+    """Part B on the card: SHARD_W gloo ranks sharing the card (torchrun
+    child processes of this script), data-parallel, against one process
+    from the same params and injected noise: (a) Config 1's exact step at
+    full width, the bank split 25 000 / 25 000; (b) Config 4's approximate
+    step at full width, the bank split 100 000 / 100 000, the cache of one
+    process's refresh; (c) each rank's rows and device ms against one
+    process's."""
     import socket
 
     from exemplar_vae_tpu_torch.models import create_model
@@ -1590,6 +1790,7 @@ def sharded_phase(pl, snap_dir):
     ref_loss = float(aux["loss"])
     ref = {k: p.grad for k, p in model.named_parameters()}
     del bank_x, bank
+    c4 = _sharded_c4_reference(snap_dir, work)
     torch.cuda.empty_cache()
 
     with socket.socket() as sock:
@@ -1608,34 +1809,81 @@ def sharded_phase(pl, snap_dir):
         print(proc.stderr[-4000:], file=sys.stderr, flush=True)
     check(proc.returncode == 0, f"the {SHARD_W} ranks exited "
           f"{proc.returncode}")
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=True)
+            for r in range(SHARD_W)]
     launches = {}
-    for r in range(SHARD_W):
-        out = torch.load(work / f"rank{r}.pt", weights_only=True)
+    b_r, k = TRAIN_B // SHARD_W, c4["selection"].shape[1]
+    for r, out in enumerate(outs):
         check(out["banned"] == [], f"rank {r} imported {out['banned']}")
+        # (a)
         check(out["launches"] == 1, f"rank {r} launched the kernel "
               f"{out['launches']} times in one step")
+        check(out["rows"] == {"forward": [b_r], "reencode": [N_BANK //
+                                                             SHARD_W]},
+              f"rank {r}'s Config 1 step saw rows {out['rows']}")
         rel = abs(out["loss"] - ref_loss) / abs(ref_loss)
         check(rel <= STEP_LOSS_RTOL, f"rank {r} loss {out['loss']} vs one "
               f"process {ref_loss}")
-        worst = ("", -1.0)
-        for name, w in ref.items():
-            e = float((out["grads"][name].to(dev) - w).abs().max()) / max(
-                float(w.abs().max()), 1e-30)
-            check(e <= GRAD_REL, f"rank {r} gradient {name}: {e:.3g} of its "
-                  f"largest element > {GRAD_REL}")
-            worst = max(worst, (name, e), key=lambda t: t[1])
+        worst = _check_grads(f"rank {r}", out["grads"], ref, dev)
         launches[f"sharded_rank{r}"] = out["launches"]
-        log(f"[sharded] rank {r} ({out['backend']}, world_size "
-            f"{out['world_size']}): loss {out['loss']:.6f} vs one process "
-            f"{ref_loss:.6f} (rel {rel:.3e}, rtol {STEP_LOSS_RTOL}); worst "
-            f"gradient {worst[0]} at {worst[1]:.3e} of its largest element "
-            f"(limit {GRAD_REL}); pairwise_lse launches {out['launches']} at "
-            f"B={TRAIN_B}, N={N_BANK // SHARD_W}, LOO; step "
+        log(f"[sharded] (a) rank {r} ({out['backend']}, world_size "
+            f"{out['world_size']}): Config 1 exact step, {b_r} of the batch's "
+            f"{TRAIN_B} rows: loss (the ranks' shares summed) "
+            f"{out['loss']:.6f} vs one process {ref_loss:.6f} (rel "
+            f"{rel:.3e}, rtol {STEP_LOSS_RTOL}); worst gradient {worst[0]} "
+            f"at {worst[1]:.3e} of its largest element (limit {GRAD_REL}); "
+            f"pairwise_lse launches {out['launches']} at B={TRAIN_B} (z "
+            f"gathered), N={N_BANK // SHARD_W}, LOO; step "
             f"{out['step_ms']:.3f} ms (the process's first), a second "
             f"{out['step2_ms']:.3f} ms")
-    log(f"[sharded] Config 1 exact-prior step at full width on {SHARD_W} "
-        f"gloo ranks sharing the card, N={N_BANK} split "
-        f"{N_BANK // SHARD_W} per rank: torchrun wall {wall_s:.2f} s")
+        # (b): the selections first, then loss and gradients
+        o4 = out["c4"]
+        sel, want = o4["selection"], c4["selection"]
+        if not torch.equal(sel, want):
+            bad = (sel != want).any(1).nonzero().flatten()[:5].tolist()
+            for b in bad:
+                d = lambda cols: ((c4["q"][b][None] - c4["cache"][  # noqa
+                    cols.to(dev)]) ** 2).sum(-1).tolist()
+                log(f"[sharded] (b) rank {r} row {b}: one process's rows "
+                    f"{want[b].tolist()} at distances {d(want[b])}; the "
+                    f"rank's {sel[b].tolist()} at {d(sel[b])}")
+        check(torch.equal(sel, want), f"rank {r}'s Config 4 kNN selection "
+              f"differs from one process's (a near tie?)")
+        check(o4["launches"] == 0, f"rank {r}'s approximate step launched "
+              f"the kernel {o4['launches']} times")
+        rel4 = abs(o4["loss"] - c4["loss"]) / abs(c4["loss"])
+        check(rel4 <= STEP_LOSS_RTOL, f"rank {r} Config 4 loss {o4['loss']} "
+              f"vs one process {c4['loss']}")
+        worst4 = _check_grads(f"rank {r} Config 4", o4["grads"], c4["grads"],
+                              dev)
+        # (c)
+        check(o4["rows"] == {"forward": [b_r], "reencode": [b_r * k]},
+              f"rank {r}'s Config 4 step saw rows {o4['rows']}")
+        launches[f"sharded_config4_rank{r}"] = o4["launches"]
+        log(f"[sharded] (b) rank {r}: Config 4 approximate step (K={k} per "
+            f"row, N={C4_N} split {C4_N // SHARD_W} per rank, fp32): "
+            f"selection ({TRAIN_B}, {k}) equal to one process's; loss "
+            f"{o4['loss']:.6f} vs one process {c4['loss']:.6f} (rel "
+            f"{rel4:.3e}, rtol {STEP_LOSS_RTOL}); worst gradient "
+            f"{worst4[0]} at {worst4[1]:.3e} of its largest element; "
+            f"pairwise_lse launches {o4['launches']}")
+        log(f"[sharded] (c) rank {r}: batch forward {o4['rows']['forward']} "
+            f"rows, re-encode {o4['rows']['reencode']} rows; a profiled "
+            f"step: device {o4['device_ms']:.3f} ms (copies "
+            f"{o4['copy_ms']:.3f} ms), wall {o4['wall_ms']:.3f} ms (two "
+            f"ranks share the card: no sharding speed)")
+    check(c4["rows"] == {"forward": [TRAIN_B], "reencode": [TRAIN_B * k]},
+          f"one process's Config 4 step saw rows {c4['rows']}")
+    log(f"[sharded] (c) one process: batch forward {c4['rows']['forward']} "
+        f"rows, re-encode {c4['rows']['reencode']} rows; a profiled step: "
+        f"device {c4['device_ms']:.3f} ms (copies {c4['copy_ms']:.3f} ms), "
+        f"wall {c4['wall_ms']:.3f} ms; "
+        f"step peak memory {c4['step_gb']:.2f} GB; cache refresh of "
+        f"{C4_N} rows at fp32 {c4['refresh_ms']:.1f} ms (host clock), peak "
+        f"{c4['refresh_gb']:.2f} GB")
+    log(f"[sharded] Config 1 and Config 4 steps at full width on {SHARD_W} "
+        f"gloo ranks sharing the card, data-parallel ({TRAIN_B // SHARD_W} "
+        f"rows each): torchrun wall {wall_s:.2f} s")
     return launches
 
 

@@ -76,6 +76,17 @@ class TwoLevelMLPCore:
     def encode_top_mean(self, x):
         return self.encode_top(x)[0]
 
+    @property
+    def top_dim(self) -> int:
+        """The width of z2, the latent the prior scores."""
+        return self.cfg.z2_size
+
+    def draw_eps(self, b: int, generator=None, device=None):
+        """The forward's reparameterization noise for ``b`` rows, the pair
+        (eps2 (b, z2), eps1 (b, z1)), drawn in that order."""
+        return tuple(torch.randn((b, n), generator=generator, device=device)
+                     for n in (self.cfg.z2_size, self.cfg.z1_size))
+
     def q_z1_cache(self, x):
         """The x-only half of q(z1|x,z2): computed once per test point and
         reused across importance samples (the encode-once IWAE)."""

@@ -59,6 +59,16 @@ class VAE(PriorMixin, nn.Module):
     def encode_top_mean(self, x):
         return self.encode_top(x)[0]
 
+    @property
+    def top_dim(self) -> int:
+        """The width of z, the latent the prior scores."""
+        return self.cfg.z1_size
+
+    def draw_eps(self, b: int, generator=None, device=None):
+        """The forward's reparameterization noise for ``b`` rows, (b, z1)."""
+        return torch.randn((b, self.cfg.z1_size), generator=generator,
+                           device=device)
+
     # --- generative net ---
     def decode(self, z):
         h = self.p_layers_1(self.p_layers_0(z))

@@ -30,18 +30,25 @@ def _uniform(x, u, generator):
     return torch.rand(x.shape, generator=generator, device=x.device)
 
 
+def train_draws_uniforms(dtype, *, input_type: str,
+                         dynamic_binarization: bool) -> bool:
+    """Whether preprocess_batch(train=True) of an x of ``dtype`` consumes
+    uniforms, one per element of x (the ``u`` it takes)."""
+    if input_type == "binary":
+        return dynamic_binarization
+    return input_type == "continuous" and dtype == torch.uint8
+
+
 def preprocess_batch(x, *, input_type: str, dynamic_binarization: bool,
                      train: bool, generator=None, u=None):
     """x: uint8 or float in [0,1], any layout. Returns float32."""
+    noise = (_uniform(x, u, generator) if train and train_draws_uniforms(
+        x.dtype, input_type=input_type,
+        dynamic_binarization=dynamic_binarization) else None)
     if input_type == "binary":
         xf = to_float(x)
-        if dynamic_binarization and train:
-            return (_uniform(xf, u, generator) < xf).to(torch.float32)
-        return xf
-    if input_type == "continuous":
-        if x.dtype == torch.uint8:
-            xi = x.to(torch.float32)
-            noise = _uniform(xi, u, generator) if train else 0.5
-            return (xi + noise) / 256.0
-        return to_float(x)
+        return xf if noise is None else (noise < xf).to(torch.float32)
+    if input_type == "continuous" and x.dtype == torch.uint8:
+        return (x.to(torch.float32)
+                + (0.5 if noise is None else noise)) / 256.0
     return to_float(x)

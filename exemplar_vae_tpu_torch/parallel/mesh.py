@@ -1,13 +1,20 @@
-"""The bank mesh over torch.distributed (counterpart of
+"""The data mesh over torch.distributed (counterpart of
 exemplar_vae_tpu/parallel/mesh.py).
 
-One axis, ``data``: the exemplar bank and the approximate prior's cache are
-split by rows over the ranks of the process group; the params, the batch and
-every draw from the step's generator are replicated, so each rank computes
-the whole step and only the bank-sized work is divided. Rank r holds rows
-[r * n_loc, (r + 1) * n_loc) of the bank padded to a multiple of the world
-size (``pad_to_shards``); padding rows carry exemplar index -2 and ``valid``
-False.
+One axis, ``data``, on which both the batch rows and the exemplar bank are
+split, as in the JAX package; the params and the optimizer state are
+replicated.
+
+* The batch: every rank gathers the step's whole batch and draws the
+  step's whole noise from the replicated step generator (so the ranks'
+  generators stay in step and each row sees the numbers one process gives
+  it), then keeps its own rows, ``batch_rows``: B rows split as
+  ``torch.tensor_split`` splits them, the first B mod W ranks one row
+  longer. Each rank runs the forward and backward of its rows only.
+* The bank and the approximate prior's cache: rank r holds rows
+  [r * n_loc, (r + 1) * n_loc) of the bank padded to a multiple of the
+  world size (``pad_to_shards``); padding rows carry exemplar index -2 and
+  ``valid`` False.
 
 The process group comes from torchrun's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR / MASTER_PORT), or from an ``init_method`` such as
@@ -105,23 +112,48 @@ class Mesh:
     def shard_range(self, n_padded: int) -> tuple:
         return row_range(n_padded, self.size, self.rank)
 
+    def batch_rows(self, b: int) -> tuple:
+        """[lo, hi) of this rank's rows of a batch of ``b``, split as
+        torch.tensor_split splits it: 100 rows on 3 ranks give 34 / 33 /
+        33. A rank with no rows is a configuration error."""
+        if b < self.size:
+            raise ValueError(f"a batch of {b} rows leaves ranks of the "
+                             f"{self.size}-rank mesh without rows: raise "
+                             f"batch_size to at least {self.size}")
+        q, extra = divmod(b, self.size)
+        lo = self.rank * q + min(self.rank, extra)
+        return lo, lo + q + (self.rank < extra)
+
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In-place all_reduce of ``t`` (no gradient); returns ``t``."""
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM)
         return t
 
-    def all_gather_rows(self, shard: torch.Tensor) -> torch.Tensor:
-        """(size * n_loc, ...) of every rank's (n_loc, ...) shard, rank-major:
-        the shard written into a zero buffer, then all_reduce SUM. Bool
+    def all_gather_rows(self, shard: torch.Tensor,
+                        total: Optional[int] = None) -> torch.Tensor:
+        """Every rank's rows, rank-major, with no gradient: the shard
+        written into a zero buffer, then all_reduce SUM. The ``total`` rows
+        (default: ``size`` times the shard's) are split over the ranks as
+        batch_rows splits them, so the blocks may differ in size. Bool
         shards travel as uint8."""
-        n_loc = shard.shape[0]
+        total = self.size * shard.shape[0] if total is None else total
+        lo, hi = self.batch_rows(total)
+        if hi - lo != shard.shape[0]:
+            raise ValueError(f"rank {self.rank} holds {shard.shape[0]} rows, "
+                             f"not its {hi - lo} of {total}")
         dt = torch.uint8 if shard.dtype == torch.bool else shard.dtype
-        out = torch.zeros((self.size * n_loc,) + tuple(shard.shape[1:]),
-                          dtype=dt, device=shard.device)
-        out[self.rank * n_loc:(self.rank + 1) * n_loc] = shard
+        out = torch.zeros((total,) + tuple(shard.shape[1:]), dtype=dt,
+                          device=shard.device)
+        out[lo:hi] = shard
         self.all_reduce(out)
         return out.bool() if shard.dtype == torch.bool else out
+
+    def all_gather_rows_grad(self, rows: torch.Tensor,
+                             total: int) -> torch.Tensor:
+        """Differentiable all_gather_rows of this rank's batch rows into
+        the (total, ...) batch (see AllGatherRows)."""
+        return AllGatherRows.apply(rows, self, total)
 
     def all_reduce_sum_grad(self, t: torch.Tensor) -> torch.Tensor:
         """Differentiable all_reduce SUM: its backward all-reduces the
@@ -131,7 +163,17 @@ class Mesh:
     def average_grads(self, params):
         """Replace each parameter's .grad by its mean over the ranks: one
         all_reduce SUM over the flattened gradients, then / size; the
-        tensors stay separate (AdamNormGrad normalizes each)."""
+        tensors stay separate (AdamNormGrad normalizes each).
+
+        The gradient accounting of the data-parallel step: rank r's loss
+        is L_r = (W / B) * sum over b in rows(r) of l_b, for any split of
+        the B rows over the W ranks. The collectives' backwards (
+        AllReduceSum, AllGatherRows) carry each cotangent to the rank whose
+        tensor produced it, so the ranks' gradients sum to the gradient of
+        sum_r L_r = (W / B) * sum_b l_b, whatever rank computed which part
+        of l_b (its row's forward, or a bank shard's share of its prior).
+        Their mean, this function's result, is then the gradient of
+        (1 / B) * sum_b l_b: the one-process batch mean."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
@@ -170,13 +212,12 @@ class AllReduceSum(torch.autograd.Function):
     """y = sum over ranks of x, with an explicit backward that all-reduces
     the cotangent too.
 
-    Every rank computes the same replicated loss L from y, so rank r's
-    backward gives dL/dx_r summed over the W identical copies of L: W times
-    the true gradient of its own shard's contribution, while a parameter
-    path that does not pass through the collective gets its gradient once.
-    Averaging each parameter's gradient over the ranks afterwards
-    (Mesh.average_grads) then yields sum over shards + the replicated part:
-    the one-rank gradient."""
+    y_b, a whole-batch row, is computed on every rank, but only the rank
+    that owns row b uses it in its loss L_r (the others' cotangent of y_b
+    is zero). The all-reduced cotangent is therefore, on every rank, each
+    row's cotangent from the rank that owns the row: rank r's backward
+    then gives d(sum_s L_s)/dx_r, its shard's contribution to every rank's
+    loss, which Mesh.average_grads turns into the one-process gradient."""
 
     @staticmethod
     def forward(ctx, x):
@@ -191,6 +232,26 @@ class AllReduceSum(torch.autograd.Function):
         return g
 
 
+class AllGatherRows(torch.autograd.Function):
+    """The (total, ...) batch from every rank's rows (Mesh.batch_rows), and
+    a backward that all-reduces the cotangent and keeps the rank's own
+    rows (a reduce-scatter): every rank uses the whole gathered batch (its
+    bank shard scores every row), so the gradient of a rank's rows is the
+    sum of the cotangents that every rank's use of them produced."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, total):
+        ctx.rows = mesh.batch_rows(total)
+        return mesh.all_gather_rows(x, total)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        lo, hi = ctx.rows
+        return g[lo:hi], None, None
+
+
 def create_mesh(cfg, device="cuda") -> Optional[Mesh]:
     """The mesh of ``cfg.mesh_shape`` over the process group, or None for a
     one-device run (mesh_shape (1,) and no group of more than one rank).
@@ -199,8 +260,8 @@ def create_mesh(cfg, device="cuda") -> Optional[Mesh]:
     asked to be sharded never runs on one process."""
     if len(cfg.mesh_shape) != 1 or tuple(cfg.mesh_axes) != ("data",):
         raise ValueError(f"mesh_shape={cfg.mesh_shape} mesh_axes="
-                         f"{cfg.mesh_axes}: the port shards the bank over "
-                         f"one axis, ('data',)")
+                         f"{cfg.mesh_axes}: the port shards the batch and the "
+                         f"bank over one axis, ('data',)")
     n = int(math.prod(cfg.mesh_shape))
     if not dist.is_initialized():
         if n == 1 and int(os.environ.get("WORLD_SIZE", "1")) == 1:

@@ -1,24 +1,31 @@
-"""The approximate-kNN exemplar prior over a sharded bank (counterpart of
+"""The approximate-kNN exemplar prior on the data mesh (counterpart of
 exemplar_vae_tpu/parallel/sharded_knn.py).
 
 The bank images and the cache of their latent means are split by rows over
-the ranks; the batch and its query means are replicated. Three pieces:
+the ranks, and so is the batch: each rank holds its own rows' query means.
+Four pieces:
 
 1. the cache refresh: each rank encodes its own shard, no collective;
-2. the kNN select: each rank takes the k nearest rows of its cache shard
-   (padding at +inf, padded to k candidates with +inf when the shard holds
-   fewer), as global rows; the W*k candidates per query are gathered to
-   every rank and reduced to the global top-k, ties to the lowest position
-   in the rank-major candidate list, as lax.top_k does there, which is the
-   lowest global row;
+2. the kNN select: the detached query means are gathered into the whole
+   batch's (B, Dz) on every rank; each rank takes the k nearest rows of its
+   cache shard (padding at +inf, padded to k candidates with +inf when the
+   shard holds fewer), as global rows; the W*k candidates per query are
+   gathered to every rank and reduced to the global top-k, ties to the
+   lowest position in the rank-major candidate list, as lax.top_k does
+   there, which is the lowest global row. Every rank then holds the (B, K)
+   selection;
 3. the row gather: each rank takes the selected rows it holds, zeros
    elsewhere, and an all_reduce SUM assembles them (each row lives on one
    rank, so the sum is the gather). uint8 images and int32 indices travel
-   in their own types, exact at any bank size.
-
-Gradients flow through the fresh re-encode of the gathered rows, which
-every rank computes alike: the step's gradient average leaves them as they
-are.
+   in their own types, exact at any bank size;
+4. the re-encode with gradients. Per-row support: each rank keeps its own
+   rows' B_r * K neighbours, re-encodes only those and scores its own rows;
+   a row's mixture uses only its own K neighbours, so no differentiable
+   collective is needed. Batch-union support: each rank re-encodes the
+   whole union of B * K rows, as the JAX package keeps it replicated, and
+   scores its own rows against it; the step's gradient average (the union's
+   encoder gradient summed over the ranks' rows, then / W) stays the
+   one-process gradient.
 """
 
 from __future__ import annotations
@@ -51,9 +58,9 @@ def make_sharded_cache_refresh(model, cfg: Config, mesh: Mesh):
 def sharded_knn_select(q_means, cache_shard, valid_shard, k: int,
                        mesh: Mesh):
     """(B, k) int64 global bank rows of the k nearest cached means of each
-    replicated query, over every rank's shard. ``valid_shard`` is the
-    shard's valid mask: padding rows get +inf and are never picked while k
-    valid rows remain."""
+    query, over every rank's shard; every rank passes the same (B, Dz)
+    queries, the whole batch's. ``valid_shard`` is the shard's valid mask:
+    padding rows get +inf and are never picked while k valid rows remain."""
     n_loc = cache_shard.shape[0]
     d = pairwise_sq_dist(q_means.detach(), cache_shard.detach())
     d = torch.where(valid_shard[None, :], d, torch.inf)
@@ -86,12 +93,24 @@ def sharded_row_gather(arr_shard, rows, mesh: Mesh):
 
 
 def make_sharded_approx_prior(cfg: Config, mesh: Mesh):
-    """``prior_fn(model, out, bank, ...)``, the train loss's
-    ``sharded_approx_fn``: the approximate prior (per-row or batch-union
-    support) with the kNN select and the row gather over the mesh;
-    ``bank`` holds this rank's shard of the images, indices, valid mask and
-    cache."""
-    return functools.partial(
-        approx_log_p_top,
-        select=functools.partial(sharded_knn_select, mesh=mesh),
-        gather=functools.partial(sharded_row_gather, mesh=mesh))
+    """``prior_fn(model, out, cfg, bank, loo_idx, log_denom, generator=None,
+    *, bank_u=None, batch_size)``, the train loss's ``sharded_approx_fn``:
+    the approximate prior (per-row or batch-union support) of this rank's
+    rows of a batch of ``batch_size`` (``out``, ``loo_idx``), with the kNN
+    select and the row gather over the mesh; ``bank`` holds this rank's
+    shard of the images, indices, valid mask and cache."""
+    gather = functools.partial(sharded_row_gather, mesh=mesh)
+
+    def prior_fn(model, out, cfg, bank, loo_idx, log_denom, generator=None,
+                 *, bank_u=None, batch_size):
+        def select(q_means, cache_shard, valid_shard, k):
+            q_all = mesh.all_gather_rows(q_means.detach(), batch_size)
+            return sharded_knn_select(q_all, cache_shard, valid_shard, k,
+                                      mesh)
+
+        return approx_log_p_top(model, out, cfg, bank, loo_idx, log_denom,
+                                generator, bank_u=bank_u, select=select,
+                                gather=gather,
+                                batch_rows=mesh.batch_rows(batch_size))
+
+    return prior_fn

@@ -1,19 +1,24 @@
-"""The exact exemplar prior over a sharded bank (counterpart of
+"""The exact exemplar prior on the data mesh (counterpart of
 exemplar_vae_tpu/parallel/sharded_prior.py).
 
-Each rank re-encodes its own bank shard with gradients and runs the
-pairwise-LSE kernel (ops/pairwise_lse.py, through the prior's autograd
-Function) of the replicated batch latents against it, with the LOO mask on
-the shard's global exemplar indices. The global mixture is the log-space
-combine of the per-shard partials:
+Each rank holds its own rows of the batch and its own shard of the bank.
+The batch latents z (B_r, D) are gathered into the whole batch's (B, D)
+with the mesh's differentiable gather (parallel/mesh.py::AllGatherRows),
+the LOO indices with the plain one; the JAX package's shard_map takes z
+replicated too (P()), so XLA gathers the batch-sharded z into it. Each
+rank re-encodes its bank shard with gradients and runs the pairwise-LSE
+kernel (ops/pairwise_lse.py, through the prior's autograd Function) of the
+whole batch against it, with the LOO mask on the shard's global exemplar
+indices. The global mixture is the log-space combine of the per-shard
+partials:
 
     m = all_reduce_MAX(lse_local.detach()),
     lse = m + log(all_reduce_SUM(exp(lse_local - m)))
 
-The max is a shift and carries no gradient; the SUM is the mesh's
-differentiable all-reduce, whose backward scales each rank's shard gradient
-by the world size, which the train step's gradient average undoes
-(parallel/mesh.py::AllReduceSum).
+and the rank returns its own rows of it. The max is a shift and carries no
+gradient; the SUM is the mesh's differentiable all-reduce, whose backward
+brings each row's cotangent from the rank that owns the row to every bank
+shard (parallel/mesh.py::AllReduceSum, Mesh.average_grads).
 """
 
 from __future__ import annotations
@@ -28,13 +33,20 @@ from exemplar_vae_tpu_torch.train.loss import bank_draw_fn, bank_pre_fn
 
 
 def make_sharded_exact_prior(cfg: Config, mesh: Mesh):
-    """``prior_fn(model, z, loo_idx, bank, log_denom, generator=None) ->
-    (B,) log p(z)``, the train loss's ``sharded_exact_fn``. ``bank`` holds
-    this rank's shard: images (n_loc, ...), global data_idx and valid
-    (n_loc,); padding rows have index -2 and valid False."""
+    """``prior_fn(model, z, loo_idx, bank, log_denom, generator=None, *,
+    batch_size) -> (B_r,) log p(z)``, the train loss's ``sharded_exact_fn``.
+    ``z`` (B_r, D) and ``loo_idx`` (B_r,) (or None) are this rank's rows of
+    a batch of ``batch_size`` (Mesh.batch_rows); ``bank`` holds this rank's
+    shard: images (n_loc, ...), global data_idx and valid (n_loc,); padding
+    rows have index -2 and valid False."""
     impl = "pallas" if cfg.use_pallas_prior else "scan"
 
-    def prior_fn(model, z, loo_idx, bank, log_denom, generator=None):
+    def prior_fn(model, z, loo_idx, bank, log_denom, generator=None, *,
+                 batch_size):
+        lo, hi = mesh.batch_rows(batch_size)
+        z_all = mesh.all_gather_rows_grad(z, batch_size)
+        loo_all = (None if loo_idx is None
+                   else mesh.all_gather_rows(loo_idx, batch_size))
         pre = draw = None
         if bank.images.dtype == torch.uint8:
             if cfg.bank_stochastic_preprocess:
@@ -46,11 +58,11 @@ def make_sharded_exact_prior(cfg: Config, mesh: Mesh):
                                       remat=cfg.exact_remat, pre_fn=pre,
                                       draw_fn=draw)
         lse_local = exemplar_log_prob(
-            z, means, model.get_prior_log_var(), log_denom=0.0,
-            data_idx=loo_idx, exemplar_idx=bank.data_idx, valid=bank.valid,
+            z_all, means, model.get_prior_log_var(), log_denom=0.0,
+            data_idx=loo_all, exemplar_idx=bank.data_idx, valid=bank.valid,
             impl=impl, block_n=cfg.prior_block_n)
         m = mesh.all_reduce(lse_local.detach().clone(), op="max")
         s = mesh.all_reduce_sum_grad(torch.exp(lse_local - m))
-        return m + torch.log(s) - float(log_denom)
+        return (m[lo:hi] + torch.log(s[lo:hi])) - float(log_denom)
 
     return prior_fn

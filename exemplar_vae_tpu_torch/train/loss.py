@@ -94,51 +94,64 @@ def _local_gather(arr, rows):
 
 
 def approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
-                     generator=None, *, select=_local_select,
-                     gather=_local_gather):
+                     generator=None, *, bank_u=None, select=_local_select,
+                     gather=_local_gather, batch_rows=None):
     """kNN over the stale cache, then a fresh re-encode of each point's K
     neighbours with gradients; per-row or batch-union support.
     ``select(q_means, cache, valid, k) -> (B, K)`` bank rows and
     ``gather(arr, rows)`` default to the bank on one device; the sharded
-    prior passes their collective forms (parallel/sharded_knn.py)."""
+    prior passes their collective forms (parallel/sharded_knn.py), with
+    ``out`` and ``loo_idx`` holding the rows ``batch_rows`` = (lo, hi) of
+    the selection's B: per-row support then re-encodes only those rows'
+    neighbours, the batch union every selected row. ``bank_u`` injects the
+    uniforms of a stochastic raw-bank preprocessing (the re-encoded rows'),
+    else they come from ``generator``."""
     idx = select(out.q_mean, bank.cache_means, bank.valid,
                  cfg.approximate_k)                             # (B, K)
+    lo, hi = batch_rows or (0, idx.shape[0])
     flat_idx = idx.reshape(-1)
     flat = gather(bank.images, flat_idx)                        # (B*K, ...)
+    ex_idx = gather(bank.data_idx, idx)                         # (B, K)
+    union = cfg.approximate_support == "batch_union"
+    if not union:
+        k = idx.shape[1]
+        flat, ex_idx = flat[lo * k:hi * k], ex_idx[lo:hi]
     if flat.dtype == torch.uint8:
-        flat = bank_pre_fn(cfg, generator)(flat)
+        flat = bank_pre_fn(cfg, generator)(flat, u=bank_u)
     if cfg.approx_remat:
         means = checkpoint(model.encode_top_mean, flat, use_reentrant=False)
     else:
         means = model.encode_top_mean(flat)
-    if cfg.approximate_support == "batch_union":
+    if union:
         # every point's mixture runs over all B*K selected exemplars, repeats
         # masked so that each unique exemplar counts once. The scan, not the
         # kernel: the support is only B*K columns, as in the JAX package
         return model.log_p_z_top(
             out.z_top, bank_means=means, data_idx=loo_idx,
-            exemplar_idx=gather(bank.data_idx, flat_idx),
+            exemplar_idx=ex_idx.reshape(-1),
             valid=dedup_valid_mask(flat_idx), log_denom=log_denom,
             impl="scan", block_n=cfg.prior_block_n)
     return model.log_p_z_top(
-        out.z_top, bank_means=means.reshape(idx.shape + (means.shape[-1],)),
-        data_idx=loo_idx, exemplar_idx=gather(bank.data_idx, idx),
-        log_denom=log_denom)
+        out.z_top, bank_means=means.reshape(ex_idx.shape + (means.shape[-1],)),
+        data_idx=loo_idx, exemplar_idx=ex_idx, log_denom=log_denom)
 
 
 def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
-                            train: bool, *, generator=None,
+                            train: bool, *, generator=None, bank_u=None,
                             sharded_exact_fn=None, sharded_approx_fn=None):
-    """log p(z_top | exemplar bank) for the three support modes; on a
-    sharded bank the training modes go to ``sharded_exact_fn`` /
-    ``sharded_approx_fn`` (parallel/), which see this rank's shard."""
+    """log p(z_top | exemplar bank) for the three support modes; on the
+    data mesh the training modes go to ``sharded_exact_fn`` /
+    ``sharded_approx_fn`` (parallel/), which see this rank's bank shard and
+    its rows of the batch (``out``, ``data_idx``). ``bank_u``: the
+    approximate prior's raw-bank uniforms (approx_log_p_top)."""
     if not train:
         return eval_log_p_top(model, out.z_top, cfg, bank)
     log_denom = bank_log_denom(cfg, bank, True)
     loo_idx = data_idx if cfg.loo_mask_enabled else None
     if cfg.approximate_prior:
         fn = sharded_approx_fn or approx_log_p_top
-        return fn(model, out, cfg, bank, loo_idx, log_denom, generator)
+        return fn(model, out, cfg, bank, loo_idx, log_denom, generator,
+                  bank_u=bank_u)
     if sharded_exact_fn is not None:
         return sharded_exact_fn(model, out.z_top, loo_idx, bank, log_denom,
                                 generator)
@@ -173,17 +186,20 @@ def eval_log_p_top(model, z, cfg: Config, bank: Optional[Bank]):
 
 def elbo_terms(model, x, cfg: Config, *, data_idx=None,
                bank: Optional[Bank] = None, train: bool = True, eps=None,
-               generator=None, sharded_exact_fn=None, sharded_approx_fn=None):
+               bank_u=None, generator=None, sharded_exact_fn=None,
+               sharded_approx_fn=None):
     """One forward pass -> per-example (RE, KL, ForwardOut). ``eps``
-    (B, Dz) injects the reparameterization noise, else it is drawn from
-    ``generator`` (which also feeds a stochastic raw-bank preprocessing)."""
+    (B, Dz) injects the reparameterization noise and ``bank_u`` the
+    approximate prior's raw-bank uniforms, else they are drawn from
+    ``generator`` (which also feeds the exact prior's stochastic raw-bank
+    preprocessing)."""
     out = model(x, eps=eps, generator=generator)
     re = reconstruction_log_lik(x, out.x_mean, out.x_logvar, cfg.input_type)
     log_q = log_normal_diag(out.z_top, out.q_mean, out.q_logvar)
     if cfg.prior == "exemplar_prior":
         log_p = exemplar_prior_log_prob(
             model, out, cfg, bank, data_idx, train, generator=generator,
-            sharded_exact_fn=sharded_exact_fn,
+            bank_u=bank_u, sharded_exact_fn=sharded_exact_fn,
             sharded_approx_fn=sharded_approx_fn)
     else:
         log_p = model.log_p_z_top(out.z_top)
@@ -191,9 +207,18 @@ def elbo_terms(model, x, cfg: Config, *, data_idx=None,
     return re, kl, out
 
 
-def batch_loss(model, x, beta, cfg: Config, **kw):
+def batch_loss(model, x, beta, cfg: Config, *, batch_size=None, **kw):
     """Scalar loss and the mean terms (0-d tensors on the device); ``kw``
-    as elbo_terms."""
+    as elbo_terms. With ``batch_size``, ``x`` holds one rank's rows of a
+    batch of that many: the loss and the terms are the rank's shares of the
+    batch means, its sums / batch_size, which add up over the ranks to the
+    means (parallel/mesh.py::Mesh.average_grads has the gradient's
+    accounting)."""
     re, kl, _ = elbo_terms(model, x, cfg, **kw)
-    loss = torch.mean(-re + beta * kl)
-    return loss, {"re": torch.mean(-re), "kl": torch.mean(kl), "loss": loss}
+    if batch_size is None:
+        loss = torch.mean(-re + beta * kl)
+        return loss, {"re": torch.mean(-re), "kl": torch.mean(kl),
+                      "loss": loss}
+    loss = torch.sum(-re + beta * kl) / batch_size
+    return loss, {"re": torch.sum(-re) / batch_size,
+                  "kl": torch.sum(kl) / batch_size, "loss": loss}

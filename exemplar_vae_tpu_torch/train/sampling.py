@@ -56,7 +56,7 @@ def generate_x(model, cfg: Config, n: int, bank_images_raw=None,
     bounds exemplar sampling to the real (non-padding) bank rows."""
     dev = model_device(model)
     if cfg.prior == "standard":
-        z = draw_normal(eps, (n, _top_dim(cfg)), generator, dev)
+        z = draw_normal(eps, (n, model.top_dim), generator, dev)
     elif cfg.prior == "vampprior":
         u = model.get_pseudo_inputs()
         i = draw_index(idx, n, u.shape[0], generator, dev)
@@ -111,7 +111,3 @@ def latent_neighbors(model, cfg: Config, x_query_raw, bank_images_raw,
     idx = knn_indices(q, as_tensor(cache_means, dev), k,
                       valid=None if valid is None else as_tensor(valid, dev))
     return idx, as_tensor(bank_images_raw, dev)[idx]
-
-
-def _top_dim(cfg: Config) -> int:
-    return cfg.z1_size if cfg.model_name.lower() == "vae" else cfg.z2_size

@@ -21,14 +21,19 @@ saved. Validation, the final evaluation and the artifacts draw from
 generators seeded afresh with fixed offsets of cfg.seed, so they are
 functions of the params.
 
-Bank sharding: with ``cfg.mesh_shape`` (W,) the Experiment runs as rank r
-of W processes (torchrun; parallel/mesh.py). The training data, the params
-and every draw are replicated; the exemplar bank, padded to a multiple of W
-(padding rows with exemplar index -2 and valid False), and the approximate
-prior's cache are split by rows, rank r holding [r * n_loc, (r + 1) *
-n_loc). Rank 0 alone writes config.json, metrics.jsonl, results.json, the
-artifacts and the checkpoints; every rank runs the same epochs, validation
-and final evaluation in lockstep.
+Data parallelism: with ``cfg.mesh_shape`` (W,) the Experiment runs as
+rank r of W processes (torchrun; parallel/mesh.py). Each step's batch is
+split by rows: every rank gathers the whole batch and draws the whole
+batch's noise from the epoch's generator (the same on every rank), then
+trains on its own rows (Mesh.batch_rows; the splits may be uneven), and
+the gradients are averaged into the one-process gradient. The exemplar
+bank, padded to a multiple of W (padding rows with exemplar index -2 and
+valid False), and the approximate prior's cache are split by rows, rank r
+holding [r * n_loc, (r + 1) * n_loc). The training data, the params and
+the optimizer state are replicated, and validation, the final evaluation
+and the artifacts run whole on every rank. Rank 0 alone writes
+config.json, metrics.jsonl, results.json, the artifacts and the
+checkpoints; every rank runs the same epochs in lockstep.
 """
 
 from __future__ import annotations
@@ -56,7 +61,6 @@ from exemplar_vae_tpu_torch.train.evaluation import (make_elbo_eval_fn,
                                                      make_iwae_fn)
 from exemplar_vae_tpu_torch.train.loss import Bank
 from exemplar_vae_tpu_torch.train.profiling import nan_debug, trace
-from exemplar_vae_tpu_torch.train.sampling import _top_dim
 from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                 make_cache_refresh,
                                                 make_epoch_fn)
@@ -139,7 +143,7 @@ class Experiment:
             images, idxs, valid = self._bank_rows(n_ex)
             cache = None
             if cfg.approximate_prior:
-                cache = torch.zeros((images.shape[0], _top_dim(cfg)),
+                cache = torch.zeros((images.shape[0], self.model.top_dim),
                                     dtype=torch.float32, device=dev)
                 self.cache_refresh = (
                     make_sharded_cache_refresh(self.model, cfg, self.mesh)
@@ -253,6 +257,7 @@ class Experiment:
                 beta, generator=self.gen)
             metrics = {k: float(v) for k, v in metrics.items()}  # host read
         dt = time.perf_counter() - t0
+        # images/s of the whole mesh: every rank's rows of every batch
         metrics.update(epoch=self.epoch, beta=beta, epoch_seconds=dt,
                        images_per_sec=self.steps_per_epoch * cfg.batch_size / dt)
         if cfg.prior == "exemplar_prior":

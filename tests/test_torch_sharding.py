@@ -1,17 +1,21 @@
-"""The port's bank sharding over torch.distributed: two gloo ranks on the CPU.
+"""The port's mesh over torch.distributed: two gloo ranks on the CPU, each
+holding its shard of the bank and its rows of every batch.
 
 Each scenario runs tests/_torch_mp_child.py in two processes (RANK 0 and 1,
 a ``file://`` process group under tmp_path, so that test workers never
 share a port), which import the port and torch only. The parent holds their
-results against the port on one process and, for the sharded exact prior,
-against the JAX package's make_sharded_exact_prior on a mesh of 2 of the
-8 virtual CPU devices. A scenario that does not finish within
+results against the port on one process and, for the data-parallel exact
+prior, against the JAX package's make_sharded_exact_prior on a mesh of 2 of
+the 8 virtual CPU devices. A scenario that does not finish within
 CHILD_TIMEOUT_S fails its tests (a hung collective), not the run.
 
 Tolerances (fp32): prior values and losses rtol 1e-5 (the cross-shard
 log-space combine adds the shards' partial sums in another order), each
 gradient tensor within 1e-4 of its largest element, validation rtol 1e-5;
-kNN rows, gathers and the checkpoint cycle exact.
+params after an epoch rtol 1e-5 / atol 1e-6 (every element against one
+process that sums each batch in the ranks' row blocks; against one process
+all but PARTING_SHARE of them); kNN rows, gathers and the checkpoint cycle
+exact.
 """
 
 import json
@@ -42,6 +46,8 @@ from exemplar_vae_tpu_torch.parallel.mesh import pad_to_shards, row_range
 from exemplar_vae_tpu_torch.train.trainer import Experiment
 from exemplar_vae_tpu_torch.weights import params_from_flax
 
+from _torch_mp_child import block_epoch_fn, record_step_grads
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(ROOT, "tests", "_torch_mp_child.py")
 CHILD_TIMEOUT_S = 120
@@ -49,19 +55,25 @@ CHILD_THREADS = 2
 W = 2
 N = 25                          # odd: the last shard holds one padding row
 GRAD_REL = 1e-4
+# Params after an epoch that part from one process's (rtol 1e-5 / atol
+# 1e-6), as a share of all elements: where a gradient cancels to near zero,
+# AdamNormGrad's first update lr * g_n / (|g_n| + 3.2e-7) (g_n the gradient
+# over its tensor's norm) turns the ulp by which the ranks' row blocks and
+# one process's whole batch sum it apart into more than the atol.
+PARTING_SHARE = 1e-5
 
 
-def _run_ranks(scenario, work, inputs):
-    """Run ``scenario`` on W ranks; returns their result dicts."""
+def _run_ranks(scenario, work, inputs, world=W):
+    """Run ``scenario`` on ``world`` ranks; returns their result dicts."""
     os.makedirs(work, exist_ok=True)
     torch.save(inputs, os.path.join(work, "inputs.pt"))
-    env = dict(os.environ, WORLD_SIZE=str(W),
+    env = dict(os.environ, WORLD_SIZE=str(world),
                OMP_NUM_THREADS=str(CHILD_THREADS))
     procs = [subprocess.Popen(
         [sys.executable, CHILD, scenario, str(work)],
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(W)]
+        for r in range(world)]
     errs = []
     try:
         for p in procs:
@@ -78,10 +90,28 @@ def _run_ranks(scenario, work, inputs):
     for r, (p, err) in enumerate(zip(procs, errs)):
         assert p.returncode == 0, f"{scenario} rank {r}:\n{err[-3000:]}"
     outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-            for r in range(W)]
+            for r in range(world)]
     for out in outs:
         assert out["jax_loaded"] == []
     return outs
+
+
+def _assert_params_after_steps(got, want, blocks, lr, steps, what):
+    """Params after ``steps`` optimizer steps at rtol 1e-5 / atol 1e-6:
+    every element of one process's that sums each batch in the ranks' row
+    blocks (``blocks``, block_epoch_fn); of one process's (``want``) all
+    but PARTING_SHARE of the elements, and those within what AdamNormGrad
+    can move a param in ``steps`` steps (lr each, so 2 * lr apart)."""
+    n_part = n_all = 0
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), blocks[name].numpy(),
+                                   rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{what} {name}, row blocks")
+        d = (got[name] - w).abs()
+        part = d > 1e-6 + 1e-5 * w.abs()
+        assert (d[part] <= 2 * lr * steps).all(), (what, name, d.max())
+        n_part, n_all = n_part + int(part.sum()), n_all + w.numel()
+    assert n_part <= PARTING_SHARE * n_all, (what, n_part, n_all)
 
 
 def _assert_grads(got, want, what):
@@ -202,9 +232,11 @@ def _jax_sharded_prior(o):
 
 @pytest.mark.parametrize("reference", ["port_one_rank", "jax_mesh_of_2"])
 def test_sharded_exact_prior_value_and_gradients(ops, reference):
-    """Two ranks, each through the kernel's wrapper (its plain version on
-    the CPU) on its shard with the LOO mask and global indices, combined in
-    log space; parameter and z gradients averaged over the ranks."""
+    """Two ranks, each holding 3 of the 6 rows of z and half the bank, each
+    through the kernel's wrapper (its plain version on the CPU) on the
+    gathered z against its shard with the LOO mask and global indices,
+    combined in log space; the ranks' rows of the prior and of the z
+    gradient gathered, parameter gradients averaged over the ranks."""
     val, gz, grads = (_one_rank_prior(ops) if reference == "port_one_rank"
                       else _jax_sharded_prior(ops))
     for out in ops["outs"]:
@@ -286,12 +318,20 @@ def _epoch(mode, work):
     try:
         one = Experiment(_exp_cfg(mode, work / "one"), device="cpu",
                          verbose=False)
+        step_grads = record_step_grads(one.model, one.state.opt)
         ref = {"metrics": one.train_epoch(),
+               "step_grads": step_grads,
                "grads": {k: p.grad.clone()
                          for k, p in one.model.named_parameters()},
                "params": {k: v.clone()
                           for k, v in one.model.state_dict().items()},
                "val": one.validate()}
+        blocks = Experiment(_exp_cfg(mode, work / "blocks"), device="cpu",
+                            verbose=False)
+        blocks.epoch_fn = block_epoch_fn(blocks.cfg, W)
+        blocks.train_epoch()
+        ref["blocks"] = {k: v.clone()
+                         for k, v in blocks.model.state_dict().items()}
     finally:
         torch.set_num_threads(threads)
     cfg = _exp_cfg(mode, work / "two").replace(mesh_shape=(W,))
@@ -315,11 +355,13 @@ def epochs(tmp_path_factory):
 
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 def test_experiment_epoch_on_two_ranks_equals_one(epochs, mode):
-    """One epoch (2 steps of 16) over a bank of 45 split 23 / 23 (one
-    padding row, index -2, valid False), then validation over the gathered
-    eval bank: losses, the last step's gradients, the params and the
-    validation as on one process; the two ranks bitwise alike."""
-    ref, outs, _ = epochs(mode)
+    """One epoch (2 steps of 16, data-parallel: each rank trains on 8 rows
+    of every batch) over a bank of 45 split 23 / 23 (one padding row,
+    index -2, valid False), then validation over the gathered eval bank:
+    the epoch's metrics (all-reduced once), every step's gradients, the
+    params (_assert_params_after_steps) and the validation as on one
+    process; the two ranks bitwise alike."""
+    ref, outs, cfg = epochs(mode)
     for r, out in enumerate(outs):
         assert out["bank_rows"] == 23
         assert out["bank_idx"].tolist() == (
@@ -327,10 +369,12 @@ def test_experiment_epoch_on_two_ranks_equals_one(epochs, mode):
         for k in ("loss", "re", "kl"):
             np.testing.assert_allclose(out["metrics"][k], ref["metrics"][k],
                                        rtol=1e-5, err_msg=f"{mode} {k}")
+        for got, want in zip(out["step_grads"], ref["step_grads"]):
+            _assert_grads(got, want, mode)
         _assert_grads(out["grads"], ref["grads"], mode)
-        for name, p in ref["params"].items():
-            np.testing.assert_allclose(out["params"][name].numpy(), p.numpy(),
-                                       rtol=1e-5, atol=1e-6, err_msg=name)
+        _assert_params_after_steps(out["params"], ref["params"],
+                                   ref["blocks"], cfg.lr,
+                                   len(ref["step_grads"]), mode)
         np.testing.assert_allclose(np.array(out["val"]), np.array(ref["val"]),
                                    rtol=1e-5)
     for name, p in outs[0]["params"].items():
