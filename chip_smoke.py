@@ -51,7 +51,20 @@ Phases; any failure exits non-zero before the result lines:
    trains one epoch into a temporary snapshot directory (val/test 256,
    S = MB = 8) and its metrics.jsonl and results.json must hold finite
    numbers;
-7. BASELINE Config 3, the JAX package's bench row 3 at full width: the
+7. [trajectory], Config 1's whole training run through the port's
+   Experiment at full width: the VAE at 784-300-300-40 on 50 000 static
+   binary synthetic 28x28 images, the exact prior over all N = 50 000
+   (LOO), batch 100, fp32 with TF32 off, plain Adam, 3 epochs with a
+   2-epoch warm-up, validation over 10 000 images after each epoch, the
+   final IWAE on the best params cut to 100 test points at S = 5000,
+   MB = 500. It runs twice from one seed (the same Philox draws), once
+   through the kernel and once through the blockwise scan prior: every
+   epoch's validation loss and the final IWAE NLL within TRAJ_NATS, the
+   same best flags and epochs trained; the kernel run launches the kernel
+   once per train step (1500), per validation batch (400) and per IWAE
+   round (10), counted per path, and the scan run never; each run's
+   seconds per epoch;
+8. BASELINE Config 3, the JAX package's bench row 3 at full width: the
    two-level ConvHVAE (default conv spec, hidden 300, z1 = z2 = 40) on
    fashion_mnist (with no IDX files on disk its 28x28 gray synthetic
    stand-in, logistic-256 likelihood), the approximate kNN exemplar prior
@@ -69,7 +82,7 @@ Phases; any failure exits non-zero before the result lines:
    peak memory, and its device time by group under the profiler; (f) the
    CLI trains one epoch of it, finite metrics, and the
    exact kernel launch count computed from its config;
-8. [pixel], the PixelHVAE at the JAX package's default width (hidden 300,
+9. [pixel], the PixelHVAE at the JAX package's default width (hidden 300,
    z1 = z2 = 40, PixelCNN of a 5x5 'A' and four 3x3 'B' masked convs of 64
    features) on the 50 000-image synthetic binarized stand-in, the exact
    prior over N = 50 000 (LOO) through the kernel, batch 100, bf16, the
@@ -88,7 +101,7 @@ Phases; any failure exits non-zero before the result lines:
    equal to the live sampler bitwise; (g) one CLI epoch (validation/test
    256, S = MB = 8): finite metrics, the five PNG grids, the launches its
    config implies;
-9. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
+10. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
    at Config 1's full width: the VAE 784-300-300-40 on dynamic_mnist (with
    no IDX files on disk its labelled synthetic stand-in, 50 000 training
    images), the exact prior over N = 50 000, batch 100, the CLI's defaults
@@ -110,7 +123,7 @@ Phases; any failure exits non-zero before the result lines:
    (784-512-512-10 on all 50 000 labels): both test errors finite and
    below 0.9, classifier_results.json written, seconds per classifier
    epoch and augmented rows/s; each child's wall time;
-10. BASELINE Config 4 at full width on the card, unsharded: the ConvHVAE
+11. BASELINE Config 4 at full width on the card, unsharded: the ConvHVAE
    (default conv spec, hidden 300, z1 = z2 = 40) on celeba's stand-in,
    synthetic_continuous (200 000 + 256 + 10 images of 64x64x3 uint8; the
    CelebA files are not in the repository), the approximate prior (K = 10,
@@ -126,7 +139,7 @@ Phases; any failure exits non-zero before the result lines:
    10 points (B = 5000 rows a round, one launch per round), through the
    kernel and through the scan on the same noise within rtol 1e-5, its
    time, peak memory and device time by group;
-11. [sharded], data-parallel training on the mesh: torchrun starts
+12. [sharded], data-parallel training on the mesh: torchrun starts
    SHARD_W = 2 child processes of this script (``--sharded-rank``), gloo
    ranks sharing the card, each training on TRAIN_B / SHARD_W = 50 rows of
    every batch and holding half the bank, against one process here from
@@ -145,7 +158,7 @@ Phases; any failure exits non-zero before the result lines:
    one process: the rows the batch forward and the re-encode saw (50 and
    500 against 100 and 1000) and the device ms of a profiled step (two
    ranks share one card: no sharding speed);
-12. the kernels line, the card's name and power limit, and the ok line.
+13. the kernels line, the card's name and power limit, and the ok line.
 """
 
 import contextlib
@@ -210,6 +223,12 @@ TRAIN_B, TRAIN_STEPS, WARM_STEPS, PROF_STEPS = 100, 200, 20, 10
 # from the scan's by up to ~2e-5, which scales each row's prior weights by
 # 1 +- 2e-5 in the shared backward
 STEP_LOSS_RTOL, GRAD_REL = 1e-5, 1e-4
+# [trajectory]: Config 1's run through the kernel and through the scan
+# prior from one seed, plain Adam; validation images, IWAE points (cut from
+# the test split), epochs, warm-up and the limit on each per-epoch
+# validation loss and the final IWAE NLL: both runs draw the same noise,
+# so the kernel's ~1e-5 rounding against the scan is their one difference
+TRAJ_VAL, TRAJ_T, TRAJ_EPOCHS, TRAJ_WARMUP, TRAJ_NATS = 10_000, 100, 3, 2, 1e-2
 # Config 3: validation images, IWAE points per request, B*K re-encode calls
 C3_VAL, C3_T, C3_REENCODE = 10_000, 100, 5
 C3_S, C3_MB = 5000, 500                  # the IWAE protocol (Config defaults)
@@ -768,6 +787,103 @@ def training_phase(pl, snap_dir):
         f"val_loss {records[0]['val_loss']:.4f}, test_nll "
         f"{results['test_nll']:.4f}; pairwise_lse launches {cli_launches}")
     return launches, cli_launches
+
+
+def trajectory_phase(pl, snap_dir):
+    """Config 1's whole training run twice from one seed, through the
+    kernel and through the scan prior; returns the kernel run's launches
+    per path."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.train.trainer import Experiment
+
+    cfg = Config(dataset_name="synthetic", dynamic_binarization_override=False,
+                 model_name="vae", prior="exemplar_prior",
+                 number_components=N_BANK, training_set_size=N_BANK,
+                 val_set_size=TRAJ_VAL, test_set_size=TRAJ_T,
+                 batch_size=TRAIN_B, test_batch_size=TRAIN_B, hidden_size=300,
+                 z1_size=D, warmup=TRAJ_WARMUP, epochs=TRAJ_EPOCHS,
+                 S=C3_S, MB=C3_MB, optimizer="adam", compute_dtype="float32",
+                 prior_block_n=2048, exact_reencode_chunk=0,
+                 exact_remat=False, seed=21)
+    runs = {}
+    for kernel in (True, False):
+        c = cfg.replace(use_pallas_prior=kernel,
+                        snapshot_dir=str(snap_dir / f"trajectory_{kernel}"))
+        exp = Experiment(c, device="cuda", verbose=False)
+        counts = {"train": 0, "validation": 0, "iwae": 0}
+
+        def counted(path, fn):
+            def call(*args, **kw):
+                before = pl.pairwise_lse.launches
+                out = fn(*args, **kw)
+                counts[path] += pl.pairwise_lse.launches - before
+                return out
+            return call
+
+        exp.epoch_fn = counted("train", exp.epoch_fn)
+        exp.elbo_eval = counted("validation", exp.elbo_eval)
+        exp.iwae = counted("iwae", exp.iwae)
+        torch.cuda.synchronize()
+
+        # ---- the main path: counts 0 just before, read just after ----
+        pl.pairwise_lse.launches = 0
+        t0 = time.perf_counter()
+        results = exp.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = pl.pairwise_lse.launches
+        # ---- end of the main path ----
+
+        records = _epoch_records(Path(exp.exp_dir))
+        check(sum(counts.values()) == launches, f"launches by path {counts} "
+              f"do not add up to {launches}")
+        nums = [r["loss"] for r in records] + [r["val_loss"] for r in records]
+        check(all(math.isfinite(v) for v in nums + [results["test_nll"]]),
+              f"trajectory (kernel={kernel}): non-finite {records} {results}")
+        runs[kernel] = (records, results, counts, secs)
+        route = "kernel" if kernel else "scan"
+        log(f"[trajectory] {route} run: {secs:.2f} s, "
+            + ", ".join(f"epoch {r['epoch']} {r['epoch_seconds']:.3f} s "
+                        f"val_loss {r['val_loss']:.6f}" for r in records)
+            + f"; test_nll {results['test_nll']:.6f}; pairwise_lse launches "
+            f"{counts}")
+        del exp
+        torch.cuda.empty_cache()
+
+    (krec, kres, kcounts, _), (srec, sres, scounts, _) = runs[True], runs[False]
+    steps = N_BANK // TRAIN_B
+    val_batches = -(-TRAJ_VAL // TRAIN_B)
+    rounds = -(-C3_S // C3_MB)
+    # one launch per train step, per validation batch (after each epoch and
+    # again in the final evaluation) and per IWAE round (one chunk of 100)
+    want = {"train": TRAJ_EPOCHS * steps,
+            "validation": (TRAJ_EPOCHS + 1) * val_batches, "iwae": rounds}
+    check(kcounts == want, f"kernel run launched {kcounts}, not {want}")
+    check(sum(scounts.values()) == 0, f"scan run launched the kernel "
+          f"{scounts}")
+    check(kres["epochs_trained"] == sres["epochs_trained"] == TRAJ_EPOCHS
+          and len(krec) == len(srec) == TRAJ_EPOCHS,
+          f"epochs trained {kres['epochs_trained']} vs "
+          f"{sres['epochs_trained']}")
+    diffs = []
+    for a, b in zip(krec, srec):
+        check(a.get("best") == b.get("best") and a["beta"] == b["beta"],
+              f"epoch {a['epoch']}: best/beta {a} vs {b}")
+        diffs.append(abs(a["val_loss"] - b["val_loss"]))
+    nll_diff = abs(kres["test_nll"] - sres["test_nll"])
+    check(max(diffs) <= TRAJ_NATS and nll_diff <= TRAJ_NATS,
+          f"kernel vs scan trajectory: validation diffs {diffs}, test NLL "
+          f"diff {nll_diff} > {TRAJ_NATS} nats")
+    log(f"[trajectory] Config 1 VAE 784-300-300-{D} fp32 (TF32 off), plain "
+        f"Adam, static binary synthetic data ({N_BANK} train, {TRAJ_VAL} "
+        f"validation, IWAE cut to {TRAJ_T} test points at S={C3_S}, "
+        f"MB={C3_MB}), exact prior N={N_BANK} (LOO), batch {TRAIN_B}, "
+        f"{TRAJ_EPOCHS} epochs, warm-up {TRAJ_WARMUP}: kernel vs scan "
+        f"validation diffs per epoch {[f'{d:.3e}' for d in diffs]}, test NLL "
+        f"diff {nll_diff:.3e} (limit {TRAJ_NATS} nats); best flags "
+        f"{[r.get('best', 0) for r in krec]} both; launches {kcounts} = "
+        f"{sum(kcounts.values())}, scan run 0")
+    return {f"trajectory_{k}": v for k, v in kcounts.items()}
 
 
 def config3_phase(pl, snap_dir):
@@ -2258,6 +2374,7 @@ def main():
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = timed("train", training_phase, pl,
                                              Path(snap))
+        traj = timed("trajectory", trajectory_phase, pl, Path(snap))
         c3 = timed("config3", config3_phase, pl, Path(snap))
         pix = timed("pixel", pixel_phase, pl, Path(snap))
         c5 = timed("config5", config5_phase, pl, Path(snap))
@@ -2269,14 +2386,15 @@ def main():
         "name": "pairwise_lse", "route": "cuda",
         "source": "exemplar_vae_tpu_torch/csrc/pairwise_lse.cu",
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
-        "launches": (launches + train_launches + c3["config3_validation"]
+        "launches": (launches + train_launches + sum(traj.values())
+                     + c3["config3_validation"]
                      + c3["config3_iwae"] + sum(c5.values())
                      + sum(c4.values()) + sum(sharded.values())
                      + pix["pixel_train"] + pix["pixel_validation"]
                      + pix["pixel_iwae"]),
         "launches_per_path": {"serving": launches, "training": train_launches,
-                              "cli_epoch": cli_launches, **c3, **pix, **c5,
-                              **c4, **sharded},
+                              "cli_epoch": cli_launches, **traj, **c3,
+                              **pix, **c5, **c4, **sharded},
         "max_abs_err": main_v["max_abs_err"],
         "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"], "bound_by": main_v["bound_by"],

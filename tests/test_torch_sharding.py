@@ -51,6 +51,10 @@ from _torch_mp_child import block_epoch_fn, record_step_grads
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(ROOT, "tests", "_torch_mp_child.py")
 CHILD_TIMEOUT_S = 120
+# each CLI process of the torchrun test, on its own: 7.5x the slowest
+# wall measured under the suite's -n 6 (5.8-19.9 s), 5x the slowest
+# beside 32 spinning processes (28.1 s)
+CLI_TIMEOUT_S = 150
 CHILD_THREADS = 2
 W = 2
 N = 25                          # odd: the last shard holds one padding row
@@ -411,10 +415,11 @@ def test_two_rank_checkpoint_cycle(epochs):
 # ---------------------------------------------------------------------------
 
 
-def _cli(args, snapshot_dir, deadline, ranks=None):
-    """The port's CLI in a child process (under torchrun --standalone, which
-    picks a free local port, when ``ranks`` is given), to finish before
-    ``deadline`` (time.monotonic()); its output."""
+def _cli(args, snapshot_dir, ranks=None):
+    """The port's CLI in a child process (under torchrun --standalone, whose
+    rendezvous store and workers' store bind port 0 and keep it, when
+    ``ranks`` is given); its stdout. Each process has CLI_TIMEOUT_S of its
+    own; a failure reports the launch, its wall time and its stderr."""
     argv = ["--no_cuda", "--dataset_name", "synthetic_continuous",
             "--approximate_prior", "--approximate_k", "5",
             "--training_set_size", "45", "--number_components", "45",
@@ -427,12 +432,22 @@ def _cli(args, snapshot_dir, deadline, ranks=None):
         launch = [sys.executable, "-m", "torch.distributed.run",
                   "--standalone", "--nproc_per_node", str(ranks), "-m",
                   "exemplar_vae_tpu_torch.main", "--mesh", str(ranks)]
-    proc = subprocess.run(launch + argv, cwd=ROOT, capture_output=True,
-                          text=True,
-                          timeout=max(deadline - time.monotonic(), 1.0),
-                          env=dict(os.environ,
-                                   OMP_NUM_THREADS=str(CHILD_THREADS)))
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    what = f"{'torchrun ' if ranks else ''}CLI {' '.join(args)}"
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(launch + argv, cwd=ROOT, capture_output=True,
+                              text=True, timeout=CLI_TIMEOUT_S,
+                              env=dict(os.environ,
+                                       OMP_NUM_THREADS=str(CHILD_THREADS)))
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr.decode(errors="replace") if isinstance(
+            e.stderr, bytes) else (e.stderr or "")
+        pytest.fail(f"{what}: no exit within {CLI_TIMEOUT_S} s; stderr: "
+                    f"{err[-3000:]}")
+    wall = time.monotonic() - t0
+    assert proc.returncode == 0, (f"{what}: exit {proc.returncode} after "
+                                  f"{wall:.1f} s; stderr: "
+                                  f"{proc.stderr[-3000:]}")
     return proc.stdout
 
 
@@ -440,16 +455,15 @@ def test_cli_under_torchrun_resumes_and_equals_one_process(tmp_path):
     """torchrun runs the CLI on 2 ranks with the approximate prior over a
     uint8 bank of 45: one epoch with a checkpoint, then a resume to epoch 2
     (the gathered cache re-sharded); rank 0 alone prints, and the results
-    equal two epochs on one process. The three runs share one time limit."""
-    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    equal two epochs on one process. Each of the three runs has a time
+    limit of its own."""
     two = tmp_path / "two"
-    _cli(["--epochs", "1", "--checkpoint_every", "1"], two, deadline,
-         ranks=W)
+    _cli(["--epochs", "1", "--checkpoint_every", "1"], two, ranks=W)
     out = _cli(["--epochs", "2", "--resume", "--checkpoint_every", "1"], two,
-               deadline, ranks=W)
+               ranks=W)
     assert out.count("resumed from epoch 1") == 1 and "mesh=2" in out
     got = json.loads(out.strip().splitlines()[-1])
-    want = json.loads(_cli(["--epochs", "2"], tmp_path / "one", deadline)
+    want = json.loads(_cli(["--epochs", "2"], tmp_path / "one")
                       .strip().splitlines()[-1])
     assert got["epochs_trained"] == want["epochs_trained"] == 2
     for k in ("test_nll", "best_val_loss"):
