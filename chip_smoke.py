@@ -17,7 +17,8 @@ Phases; any failure exits non-zero before the result lines:
    N = 200 000, and one rank's train step on a mesh of 2 (B = 100, N =
    25 000, LOO), with ~1% invalid exemplars (N = 50 000: an N that no tile
    divides); kernel, plain, library-yardstick and bound times (the library
-   yardstick is freed before phase 5);
+   yardstick is freed before phase 5); at the train shape, the entry
+   against the custom op's CUDA kernel function alone (the op's host cost);
 4. [ingest]: the native parsers (data/native_ingest.py, built with g++)
    against numpy on a 60 000 x 28 x 28 IDX file and a 10 000-row .amat
    file: equal arrays, the build's and both parsers' times (host only);
@@ -28,10 +29,15 @@ Phases; any failure exits non-zero before the result lines:
    counts, set to 0 just before and read just after, must show the kernel
    ran once per round; the first request is re-scored with the blockwise
    scan prior on the card with the same noise. Then the export round trip:
-   export_serving_bundle writes the model and the eval bank, ServingBundle
-   .load reads them on the card, and the first request's score_nll and a
-   generate with injected noise equal the live functions' bitwise; export
-   and load seconds, the bundle's MB;
+   export_serving_bundle writes the model, the eval bank and three
+   torch.export programs exported on the card; a child process
+   (``--serve-bundle``) that loads no model code, no JAX and nothing of the
+   JAX package serves them through ServingBundle.load: the first request's
+   score_nll (its live noise injected) and a generate with injected noise
+   equal the live functions' bitwise, each program request launches the
+   kernel once per round (counted in the child, the kernels line's
+   "serve_program"); export, load and child seconds, the bundle's MB, the
+   program's ms per request beside the live path's;
 6. the training path of BASELINE Config 1 at the settings of the JAX
    package's bench.py::measure_ours: the VAE at 784-300-300-40 on 50 000
    synthetic 28x28 images with dynamic binarization, the exact exemplar
@@ -399,6 +405,8 @@ def kernel_phase(pl):
         z = means[own] + 0.7 * torch.randn((b, D), generator=g, device=dev)
         data_idx = own.to(torch.int32) if loo else None
         args = (z, means, log_var, data_idx, ex_idx, valid)
+        if shape == "train":
+            train_args = args
         for dt_name, dt in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             got = pl.pairwise_lse(*args, in_dtype=dt)
@@ -441,6 +449,20 @@ def kernel_phase(pl):
                 f"({bound_by}: {term}; {100 * bound_ms / ms:.1f}% of it)"
                 + (f" SIMT kernel {SIMT_MS[(shape, dt_name)]} ms (recorded)"
                    if (shape, dt_name) in SIMT_MS else ""))
+    # the custom op's host cost where the call is host-bound (the train
+    # shape, fp32): the entry (its checks, the op's dispatch, the launch)
+    # against the op's CUDA kernel function alone, in turns
+    def entry():
+        return pl.pairwise_lse(*train_args)
+
+    def alone():
+        return pl._lse_launch(*train_args, torch.float32, 2048)
+
+    turns = [cuda_ms(f, 200) for f in (entry, alone, alone, entry)]
+    log(f"[kernel] train shape fp32, ms per call: pairwise_lse (checks, the "
+        f"custom op's dispatch, the launch) {turns[0]:.4f} / {turns[3]:.4f}; "
+        f"the op's CUDA kernel function alone {turns[1]:.4f} / "
+        f"{turns[2]:.4f}")
     del banks
     torch.cuda.empty_cache()
     return results
@@ -568,35 +590,43 @@ def serving_phase(pl):
         f"(= {N_REQUESTS} requests x {rounds} rounds); peak memory "
         f"{peak_gb:.2f} GB")
 
-    # the export round trip: the served model and eval bank written by
-    # export_serving_bundle, loaded on the card, the first request and a
-    # generate with injected noise re-served bitwise
-    with tempfile.TemporaryDirectory() as d:
+    # the export round trip: export_serving_bundle writes the model, the
+    # eval bank and the three torch.export programs; a child process that
+    # loads no model code serves them through the programs, request 0 and a
+    # generate with injected noise against the live functions
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
         t0 = time.perf_counter()
-        export_serving_bundle(model, cfg, d, bank_means=eb.cache_means,
-                              data_idx=eb.data_idx, valid=eb.valid,
-                              n_effective=N_BANK, n_gen=N_GEN,
-                              score_chunk=T, s_total=cfg.S, r=r)
+        manifest = export_serving_bundle(
+            model, cfg, str(work / "bundle"), bank_means=eb.cache_means,
+            data_idx=eb.data_idx, valid=eb.valid, n_effective=N_BANK,
+            n_gen=N_GEN, score_chunk=T, s_total=cfg.S, r=r)
         export_s = time.perf_counter() - t0
-        size_mb = sum(f.stat().st_size for f in Path(d).iterdir()) / 1e6
-        t0 = time.perf_counter()
-        bundle = ServingBundle.load(d)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-    _, per = bundle.score_nll(test_x[:T], eps=[eps0])
-    check(np.array_equal(per, nlls[0].numpy()), "the loaded bundle's "
-          "score_nll differs from the live request 0")
-    idx = torch.randint(0, N_BANK, (N_GEN,), generator=g, device=dev)
-    e = torch.randn((N_GEN, D), generator=g, device=dev)
-    check(torch.equal(bundle.generate(idx=idx, eps=e),
-                      gen(eb.cache_means, idx=idx, eps=e)),
-          "the loaded bundle's generate differs from the live one")
-    log(f"[serve-export] export_serving_bundle {export_s:.3f} s, "
-        f"{size_mb:.3f} MB (params and the {N_BANK}-row eval bank); "
-        f"ServingBundle.load on the card {load_s:.3f} s; request 0's "
-        f"score_nll and generate of {N_GEN} with injected noise equal the "
-        f"live functions bitwise")
-    return launches
+        size_mb = sum(f.stat().st_size
+                      for f in (work / "bundle").iterdir()) / 1e6
+        check(manifest["platforms"] == ["cuda"] and len(manifest["programs"])
+              == 3, f"the bundle lists {manifest['platforms']} "
+              f"{manifest['programs']}")
+        idx = torch.randint(0, N_BANK, (N_GEN,), generator=g, device=dev)
+        e = torch.randn((N_GEN, D), generator=g, device=dev)
+        torch.save({"x": torch.from_numpy(test_x[:T]),
+                    "x_timed": torch.from_numpy(test_x[T:2 * T]),
+                    "eps": eps0.cpu(), "nll": nlls[0], "idx": idx.cpu(),
+                    "gen_eps": e.cpu(),
+                    "gen": gen(eb.cache_means, idx=idx, eps=e).cpu()},
+                   work / "requests.pt")
+        out, child_s = run_child("serve-export", "chip_smoke",
+                                 ["--serve-bundle", str(work)])
+    res = json.loads(out.strip().splitlines()[-1])
+    log(f"[serve-export] export_serving_bundle with {len(manifest['programs'])}"
+        f" torch.export programs {export_s:.3f} s, {size_mb:.3f} MB (programs"
+        f", params and the {N_BANK}-row eval bank); child process "
+        f"{child_s:.2f} s: ServingBundle.load {res['load_s']:.3f} s without "
+        f"model code; score_nll program {res['program_ms']:.3f} ms per request"
+        f" of {T} points (median of the last {len(res['request_ms']) - 1} "
+        f"of {res['request_ms']}) against the live path's {steady:.3f} ms; "
+        f"{res['launches_per_request']} kernel launches per program request")
+    return launches, res["launches"]
 
 
 def _kernel_group(name):
@@ -2003,9 +2033,70 @@ def sharded_phase(pl, snap_dir):
     return launches
 
 
-def banned_modules():
+def banned_modules(*more):
+    """Loaded modules of JAX, flax, optax and the JAX package, and of the
+    packages ``more``."""
     return [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "flax", "optax", "exemplar_vae_tpu")]
+            if m.split(".")[0] in ("jax", "flax", "optax", "exemplar_vae_tpu")
+            or any(m == p or m.startswith(p + ".") for p in more)]
+
+
+def serve_bundle_child(work):
+    """[serve-export]'s child: serve the bundle in ``work``/bundle through
+    its programs, with no model code loaded. Request 0 with the live
+    request's noise and a generate with injected noise, held against the
+    live outputs (``work``/requests.pt); then timed requests drawn from a
+    generator. Prints one JSON line: load s, program ms, launches."""
+    from exemplar_vae_tpu_torch.device import resolve_device
+    from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
+    from exemplar_vae_tpu_torch.serve import ServingBundle
+
+    dev = resolve_device("cuda")
+    req = torch.load(work / "requests.pt")
+    torch.empty(1, device=dev)                # the CUDA context, not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = ServingBundle.load(str(work / "bundle"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(bundle.model is None, "the bundle was served by a model, not by "
+          "its programs")
+    rounds = bundle.manifest["rounds"]
+
+    # ---- the program path: counts 0 just before, read just after ----
+    pl.pairwise_lse.launches = 0
+    _, per = bundle.score_nll(req["x"].numpy(), eps=[req["eps"].to(dev)])
+    first = pl.pairwise_lse.launches
+    imgs = bundle.generate(idx=req["idx"].to(dev),
+                           eps=req["gen_eps"].to(dev)).cpu()
+    g = torch.Generator("cuda").manual_seed(1)
+    req_ms = []
+    for _ in range(N_REQUESTS + 1):
+        t0 = time.perf_counter()
+        bundle.score_nll(req["x_timed"].numpy(), generator=g)
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = pl.pairwise_lse.launches
+    # ---- end of the program path ----
+
+    want = req["nll"].numpy()
+    err = float(np.abs(per - want).max())
+    check(first == rounds, f"request 0 through the program launched the "
+          f"kernel {first} times, want {rounds}")
+    check(launches == rounds * (N_REQUESTS + 2),
+          f"{N_REQUESTS + 2} program requests launched the kernel {launches} "
+          f"times, want {rounds} each")
+    check(np.array_equal(per, want), f"the program's request 0 differs from "
+          f"the live one: max abs {err:.3e}")
+    check(torch.equal(imgs, req["gen"]), "the program's generate differs from"
+          " the live one: max abs "
+          f"{float((imgs - req['gen']).abs().max()):.3e}")
+    banned = banned_modules("exemplar_vae_tpu_torch.models")
+    check(not banned, f"serving the bundle loaded {banned}")
+    steady = sorted(req_ms[1:])[len(req_ms[1:]) // 2]
+    print(json.dumps({"load_s": load_s, "program_ms": steady,
+                      "request_ms": [round(v, 3) for v in req_ms],
+                      "launches": launches,
+                      "launches_per_request": first}), flush=True)
 
 
 def run_child(tag, module, argv):
@@ -2343,6 +2434,9 @@ def main():
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_child(Path(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--serve-bundle"]:
+        serve_bundle_child(Path(sys.argv[2]))
+        return
     from exemplar_vae_tpu_torch.device import resolve_device
     from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
 
@@ -2370,7 +2464,7 @@ def main():
 
     kern = timed("kernel", kernel_phase, pl)
     timed("ingest", ingest_phase)
-    launches = timed("serve", serving_phase, pl)
+    launches, program_launches = timed("serve", serving_phase, pl)
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = timed("train", training_phase, pl,
                                              Path(snap))
@@ -2386,13 +2480,16 @@ def main():
         "name": "pairwise_lse", "route": "cuda",
         "source": "exemplar_vae_tpu_torch/csrc/pairwise_lse.cu",
         "replaces": "exemplar_vae_tpu/ops/pallas_lse.py:45",
-        "launches": (launches + train_launches + sum(traj.values())
+        "launches": (launches + program_launches + train_launches
+                     + sum(traj.values())
                      + c3["config3_validation"]
                      + c3["config3_iwae"] + sum(c5.values())
                      + sum(c4.values()) + sum(sharded.values())
                      + pix["pixel_train"] + pix["pixel_validation"]
                      + pix["pixel_iwae"]),
-        "launches_per_path": {"serving": launches, "training": train_launches,
+        "launches_per_path": {"serving": launches,
+                              "serve_program": program_launches,
+                              "training": train_launches,
                               "cli_epoch": cli_launches, **traj, **c3,
                               **pix, **c5, **c4, **sharded},
         "max_abs_err": main_v["max_abs_err"],

@@ -1,8 +1,11 @@
 """Device rule of the port: entry points run on the card unless the caller
-asks for the CPU, and never fall back silently."""
+asks for the CPU, and never fall back silently; ``as_tensor`` puts host
+arrays on the chosen device. Imports no model code (the serving loader
+relies on that)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +24,10 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+def as_tensor(x, device, dtype=None):
+    """numpy array or tensor -> tensor on ``device`` (no copy if already)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

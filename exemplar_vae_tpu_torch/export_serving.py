@@ -6,10 +6,11 @@ tools/export_serving.py):
         [--score_chunk 16] [--S 64] [--MB 16] [--no_cuda]
 
 It restores the run's checkpoint (ckpt_final, else ckpt_last), encodes the
-eval bank with the best params (full bank, no LOO) and writes bundle.json
-and arrays.npz (serve.export_serving_bundle). The bundle holds no compiled
-programs, so it loads in the port only. It runs on the CUDA card;
-``--no_cuda`` runs on the CPU.
+eval bank with the best params (full bank, no LOO) and writes bundle.json,
+arrays.npz and the three torch.export programs (serve.export_serving_bundle;
+a PixelHVAE bundle has no programs). The bundle loads in the port only, and
+its programs serve on the device type they were exported on. It runs on the
+CUDA card; ``--no_cuda`` runs on the CPU.
 """
 
 from __future__ import annotations

@@ -11,11 +11,14 @@ leave-one-out mask, and without ``data_idx`` the row index is NO_LOO_IDX,
 which matches an exemplar index of -1 only. Masked logits are the finite
 NEG_INF. The result has no log-denominator.
 
-``pairwise_lse`` launches csrc/pairwise_lse.cu for CUDA tensors and runs
-``pairwise_lse_plain`` for CPU tensors; there is no fallback between them.
+``pairwise_lse`` checks its inputs and calls the op
+``torch.ops.exemplar_vae_tpu_torch.pairwise_lse`` (a ``torch.library``
+custom op, so that ``torch.export`` keeps it as one node of a serving
+program), whose CUDA kernel launches csrc/pairwise_lse.cu and whose CPU
+kernel is ``pairwise_lse_plain``; there is no fallback between them.
 ``pairwise_lse.launches`` counts kernel launches (one per call, which runs
-the prep, partial and merge passes). The kernel is forward-only: a call
-that needs a gradient raises on CUDA. Gradients come from
+the prep, partial and merge passes), wherever the op is called from. The op
+is forward-only: a call that needs a gradient raises. Gradients come from
 ``ops/exemplar_prior.exemplar_log_prob``, whose autograd Function calls this
 wrapper with grad mode off and recomputes the weights in its backward.
 """
@@ -30,6 +33,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -160,27 +164,27 @@ def pairwise_lse_plain(z, means, log_var, data_idx, ex_idx, valid, *,
     return m + torch.log(s)
 
 
-def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
-                 in_dtype=torch.float32, block_n: int = 2048):
-    """(B,) fp32 LSE. z (B, D) and means (N, D) float32; log_var a float32
-    scalar tensor; data_idx (B,) int32 or None; ex_idx (N,) int32; valid
-    (N,) bool. ``in_dtype`` is float32 or bfloat16 (the kernel's input
-    type; accumulation is fp32). ``block_n`` is the exemplar tile of the
-    plain version; the kernel picks its own tiles."""
-    if in_dtype not in _DTYPE_CODE:
-        raise ValueError(f"in_dtype must be float32 or bfloat16, got {in_dtype}")
-    if z.device.type == "cpu":
-        return pairwise_lse_plain(z, means, log_var, data_idx, ex_idx, valid,
-                                  in_dtype=in_dtype, block_n=block_n)
-    if z.device.type != "cuda":
-        raise ValueError(f"pairwise_lse runs on cuda or cpu, not {z.device}")
-    _check(z, means, log_var, data_idx, ex_idx, valid)
-    if torch.is_grad_enabled() and (z.requires_grad or means.requires_grad
-                                    or log_var.requires_grad):
-        raise RuntimeError(
-            "the pairwise-LSE CUDA kernel is forward-only; for gradients call "
-            "ops.exemplar_prior.exemplar_log_prob, whose backward recomputes "
-            "the weights, or call this under torch.no_grad().")
+@torch.library.custom_op("exemplar_vae_tpu_torch::pairwise_lse",
+                         mutates_args=(), device_types="cpu")
+def _lse_op(z: torch.Tensor, means: torch.Tensor, log_var: torch.Tensor,
+            data_idx: Optional[torch.Tensor], ex_idx: torch.Tensor,
+            valid: torch.Tensor, in_dtype: torch.dtype,
+            block_n: int) -> torch.Tensor:
+    """The op's CPU kernel: the plain version."""
+    return pairwise_lse_plain(z, means, log_var, data_idx, ex_idx, valid,
+                              in_dtype=in_dtype, block_n=block_n)
+
+
+@_lse_op.register_fake
+def _lse_fake(z, means, log_var, data_idx, ex_idx, valid, in_dtype, block_n):
+    return z.new_empty((z.shape[0],), dtype=torch.float32)
+
+
+@_lse_op.register_kernel("cuda")
+def _lse_launch(z, means, log_var, data_idx, ex_idx, valid, in_dtype,
+                block_n):
+    """The op's CUDA kernel: one launch of csrc/pairwise_lse.cu, built at
+    first use."""
     build()
     b, d = z.shape
     n = means.shape[0]
@@ -217,6 +221,29 @@ def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
         raise RuntimeError(f"pairwise_lse kernel launch failed: cudaError {err}")
     pairwise_lse.launches += 1
     return out
+
+
+def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
+                 in_dtype=torch.float32, block_n: int = 2048):
+    """(B,) fp32 LSE. z (B, D) and means (N, D) float32; log_var a float32
+    scalar tensor; data_idx (B,) int32 or None; ex_idx (N,) int32; valid
+    (N,) bool. ``in_dtype`` is float32 or bfloat16 (the kernel's input
+    type; accumulation is fp32). ``block_n`` is the exemplar tile of the
+    plain version; the kernel picks its own tiles. Checks the inputs, then
+    calls the op ``torch.ops.exemplar_vae_tpu_torch.pairwise_lse``."""
+    if in_dtype not in _DTYPE_CODE:
+        raise ValueError(f"in_dtype must be float32 or bfloat16, got {in_dtype}")
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pairwise_lse runs on cuda or cpu, not {z.device}")
+    _check(z, means, log_var, data_idx, ex_idx, valid)
+    if torch.is_grad_enabled() and (z.requires_grad or means.requires_grad
+                                    or log_var.requires_grad):
+        raise RuntimeError(
+            "the pairwise-LSE op is forward-only; for gradients call "
+            "ops.exemplar_prior.exemplar_log_prob, whose backward recomputes "
+            "the weights, or call this under torch.no_grad().")
+    return _lse_op(z, means, log_var, data_idx, ex_idx, valid, in_dtype,
+                   int(block_n))
 
 
 pairwise_lse.launches = 0

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from exemplar_vae_tpu_torch.config import Config
+from exemplar_vae_tpu_torch.device import as_tensor
 from exemplar_vae_tpu_torch.models.base import (reconstruction_log_lik,
                                                 reparameterize)
 from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
@@ -31,13 +32,6 @@ from exemplar_vae_tpu_torch.train.loss import Bank, elbo_terms, eval_log_p_top
 
 def model_device(model) -> torch.device:
     return next(model.parameters()).device
-
-
-def as_tensor(x, device, dtype=None):
-    """numpy array or tensor -> tensor on ``device`` (no copy if already)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype or x.dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def make_eval_bank_fn(model, cfg: Config, mesh=None):

@@ -104,6 +104,22 @@ def test_kernel_matches_plain(dev, b, n, d, loo, in_dtype, extra):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("loo", [False, True])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_op_cuda_kernel_matches_plain(dev, loo, in_dtype):
+    """torch.ops.exemplar_vae_tpu_torch.pairwise_lse (the custom op that
+    the serving programs call) launches the kernel once on CUDA tensors."""
+    args = _inputs(dev, 100, 50_000, 40, loo)
+    before = tpl.pairwise_lse.launches
+    got = torch.ops.exemplar_vae_tpu_torch.pairwise_lse(*args, in_dtype, 2048)
+    torch.cuda.synchronize()
+    assert tpl.pairwise_lse.launches == before + 1
+    want = tpl.pairwise_lse_plain(*args, in_dtype=in_dtype)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
 def test_kernel_fully_masked_row(dev):
     z, means, lv, _, ex, _ = _inputs(dev, 2, 5, 8, False)
     valid = torch.tensor([False, False, False, True, False], device=dev)
@@ -539,7 +555,10 @@ def test_export_load_round_trip_on_card(dev, name, tmp_path):
                           data_idx=eb.data_idx, valid=eb.valid, n_gen=4,
                           score_chunk=4, s_total=16, r=8)
     b = ServingBundle.load(str(tmp_path), device=dev)
-    assert next(b.model.parameters()).device.type == dev.type
+    if name == "vae":               # served by its programs, exported on the card
+        assert b.model is None and b.manifest["platforms"] == ["cuda"]
+    else:                           # no programs: served by the model
+        assert next(b.model.parameters()).device.type == dev.type
     gen, _, score = make_serving_fns(model, cfg, 300, 4, 2, 8)
     g = torch.Generator(dev).manual_seed(3)
     two = name != "vae"
@@ -554,3 +573,40 @@ def test_export_load_round_trip_on_card(dev, name, tmp_path):
           else None)
     assert torch.equal(b.generate(idx=idx, eps=e, eps1=e1),
                        gen(eb.cache_means, idx=idx, eps=e, eps1=e1))
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_launches_the_kernel(dev, tmp_path):
+    """A VAE bundle exported on the card: its score_nll program launches the
+    kernel once per round, equals the live function bitwise on the same
+    noise, and draws the same noise from the same generator."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.serve import (ServingBundle,
+                                              export_serving_bundle,
+                                              make_serving_fns)
+    from exemplar_vae_tpu_torch.train.evaluation import make_eval_bank_fn
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    cfg = Config(hidden_size=32, z1_size=8)
+    model = create_model(cfg, device=dev, seed=1).eval()
+    rng = np.random.default_rng(0)
+    bank_x = (rng.random((300, 28, 28, 1)) < 0.3).astype(np.float32)
+    eb = make_eval_bank_fn(model, cfg)(Bank(
+        images=bank_x, data_idx=np.arange(300, dtype=np.int32),
+        valid=np.ones(300, bool), cache_means=None, n_effective=300))
+    export_serving_bundle(model, cfg, str(tmp_path), bank_means=eb.cache_means,
+                          data_idx=eb.data_idx, valid=eb.valid, n_gen=4,
+                          score_chunk=4, s_total=24, r=8)
+    b = ServingBundle.load(str(tmp_path), device=dev)
+    _, _, score = make_serving_fns(model, cfg, 300, 4, 3, 8)
+    eps = torch.randn((3, 32, 8), device=dev)
+    before = tpl.pairwise_lse.launches
+    _, per = b.score_nll(bank_x[:4], eps=[eps])
+    assert tpl.pairwise_lse.launches == before + 3
+    want = score(bank_x[:4], eb.cache_means, eb.data_idx, eb.valid, eps=eps)
+    assert np.array_equal(per, want.cpu().numpy())
+    _, per = b.score_nll(bank_x[:4],
+                         generator=torch.Generator(dev).manual_seed(5))
+    want = score(bank_x[:4], eb.cache_means, eb.data_idx, eb.valid,
+                 generator=torch.Generator(dev).manual_seed(5))
+    assert np.array_equal(per, want.cpu().numpy())

@@ -7,8 +7,10 @@
 * Layout: arrays.npz keys and values and the manifest's shared fields equal
   a JAX ``export_serving_bundle`` of the same weights and eval bank
   (``platforms=("cpu",)``, ``use_pallas_prior=False``); the port's manifest
-  has no platforms and names its writer, and the JAX loader, which needs
-  the compiled programs, refuses it.
+  names its writer and lists its torch.export programs and the device type
+  they were exported on (none for the PixelHVAE, whose bundle has no
+  programs), and the JAX loader, which needs its own compiled programs,
+  refuses it.
 """
 
 import json
@@ -25,7 +27,8 @@ from exemplar_vae_tpu.serve import ServingBundle as JBundle
 from exemplar_vae_tpu.serve import export_serving_bundle as j_export
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models import create_model
-from exemplar_vae_tpu_torch.serve import (ServingBundle, export_serving_bundle,
+from exemplar_vae_tpu_torch.serve import (PROGRAMS, ServingBundle,
+                                          export_serving_bundle,
                                           make_serving_fns)
 from exemplar_vae_tpu_torch.train.evaluation import make_eval_bank_fn
 from exemplar_vae_tpu_torch.train.loss import Bank
@@ -103,7 +106,11 @@ def test_export_load_reproduces_live_serving(name, input_type, tmp_path):
         model, cfg, str(tmp_path), bank_means=eb.cache_means,
         data_idx=eb.data_idx, valid=eb.valid, n_effective=N, **SIZES)
     assert manifest == json.loads((tmp_path / "bundle.json").read_text())
-    assert manifest["platforms"] == [] and manifest["rounds"] == ROUNDS
+    programs = name != "pixelhvae_2level"
+    assert manifest["platforms"] == (["cpu"] if programs else [])
+    assert manifest["programs"] == ([f"{p}.pt2" for p in PROGRAMS]
+                                    if programs else [])
+    assert manifest["rounds"] == ROUNDS
     assert manifest["x_dtype"] == ("uint8" if input_type == "continuous"
                                    else "float32")
     b = ServingBundle.load(str(tmp_path), device="cpu")
@@ -163,7 +170,11 @@ def test_export_layout_matches_jax(name, tmp_path):
                     platforms=("cpu",), **bank, **SIZES)
     got = export_serving_bundle(model, cfg, str(tmp_path / "port"), **bank,
                                 **SIZES)
-    assert got.pop("platforms") == [] and want.pop("platforms") == ["cpu"]
+    programs = name != "pixelhvae_2level"
+    assert got.pop("platforms") == (["cpu"] if programs else [])
+    assert want.pop("platforms") == ["cpu"]
+    assert got.pop("programs") == ([f"{p}.pt2" for p in PROGRAMS]
+                                   if programs else [])
     assert got.pop("exported_by") == "exemplar_vae_tpu_torch"
     assert got == want
     with np.load(tmp_path / "jax" / "arrays.npz") as j, \
