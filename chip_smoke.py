@@ -678,7 +678,6 @@ def training_phase(pl, snap_dir):
                                                reference_arg_parser)
     from exemplar_vae_tpu_torch.main import main as cli_main
     from exemplar_vae_tpu_torch.models import create_model
-    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
     from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                     make_train_step)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
@@ -703,15 +702,12 @@ def training_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # one region of the whole epoch call
-    timer = StepTimer(images_per_step=TRAIN_STEPS * TRAIN_B,
-                      distances_per_step=TRAIN_STEPS * TRAIN_B * N_BANK)
-
     # ---- the main path: counts 0 just before, read just after ----
     pl.pairwise_lse.launches = 0
-    with timer:
-        exp.state, metrics = run(perm)
-        loss = fetch_sync(metrics["loss"])  # host read: ends the timed call
+    t0 = time.perf_counter()                # one region: the epoch call
+    exp.state, metrics = run(perm)
+    loss = float(metrics["loss"])           # host read: ends the timed call
+    dt = time.perf_counter() - t0
     launches = pl.pairwise_lse.launches
     # ---- end of the main path ----
 
@@ -719,9 +715,8 @@ def training_phase(pl, snap_dir):
     check(launches == TRAIN_STEPS, f"pairwise_lse launched {launches} times "
           f"in {TRAIN_STEPS} training steps")
     check(math.isfinite(loss), f"training loss {loss}")
-    dt = timer.total_seconds
     ms_step = dt / TRAIN_STEPS * 1e3
-    ips = timer.images_per_sec
+    ips = TRAIN_STEPS * TRAIN_B / dt
     log(f"[train] Config 1 training at bench.py::measure_ours settings: VAE "
         f"784-{cfg.hidden_size}-{cfg.hidden_size}-{cfg.z1_size} bf16, exact "
         f"prior N={N_BANK} (LOO) through the kernel, batch {TRAIN_B}, bank "
@@ -729,7 +724,7 @@ def training_phase(pl, snap_dir):
         f"{setup_s:.2f} s")
     log(f"[train] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
         f"{ms_step:.4f} ms/step, {ips:.1f} images/s, "
-        f"{timer.distances_per_sec:.4g} exemplar distances/s; loss {loss:.4f}; "
+        f"{ips * N_BANK:.4g} exemplar distances/s; loss {loss:.4f}; "
         f"pairwise_lse launches {launches}; peak memory {peak_gb:.2f} GB")
 
     prof = profile_ms(lambda: run(exp.epoch_perm(PROF_STEPS, TRAIN_B)))
@@ -1316,7 +1311,6 @@ def pixel_phase(pl, snap_dir):
     from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
                                                          make_iwae_fn)
     from exemplar_vae_tpu_torch.train.plots import read_png
-    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
     from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                     make_train_step)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
@@ -1349,19 +1343,18 @@ def pixel_phase(pl, snap_dir):
     perm = exp.epoch_perm(TRAIN_STEPS, TRAIN_B)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = StepTimer(images_per_step=TRAIN_STEPS * TRAIN_B)
     # ---- the train part of the path: counts 0 just before, read after ----
     pl.pairwise_lse.launches = 0
-    with timer:
-        exp.state, metrics = run(perm)
-        loss = fetch_sync(metrics["loss"])  # host read: ends the timed call
+    t0 = time.perf_counter()
+    exp.state, metrics = run(perm)
+    loss = float(metrics["loss"])           # host read: ends the timed call
+    dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"PixelHVAE training loss {loss}")
     check(train_launches == TRAIN_STEPS, f"pairwise_lse launched "
           f"{train_launches} times in {TRAIN_STEPS} exact PixelHVAE steps")
-    dt = timer.total_seconds
     log(f"[pixel] PixelHVAE at full width: hidden {cfg.hidden_size}, z1 = z2 "
         f"= {D}, PixelCNN 5x5 'A' + {cfg.pixelcnn_layers} 3x3 'B' masked "
         f"convs of {cfg.pixelcnn_features} features, {n_params} params, bf16 "
@@ -1369,7 +1362,7 @@ def pixel_phase(pl, snap_dir):
         f"N={N_BANK} (LOO) through the kernel, batch {TRAIN_B}, bank encode "
         f"in one piece; set-up (data, model) {setup_s:.2f} s")
     log(f"[pixel] {TRAIN_STEPS}-step epoch call: {dt * 1e3:.3f} ms = "
-        f"{dt / TRAIN_STEPS * 1e3:.4f} ms/step, {timer.images_per_sec:.1f} "
+        f"{dt / TRAIN_STEPS * 1e3:.4f} ms/step, {TRAIN_STEPS * TRAIN_B / dt:.1f} "
         f"images/s; loss {loss:.4f}; pairwise_lse launches {train_launches}; "
         f"peak memory {peak_gb:.2f} GB")
 
@@ -2158,7 +2151,6 @@ def config5_phase(pl, snap_dir):
                                                       make_augment_fn,
                                                       make_classifier_step)
     from exemplar_vae_tpu_torch.train.plots import read_png
-    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
     from exemplar_vae_tpu_torch.train.steps import make_train_step
     from exemplar_vae_tpu_torch.train.trainer import Experiment
 
@@ -2256,11 +2248,12 @@ def config5_phase(pl, snap_dir):
                                     for _ in range(3)])
     check(not aug_syncs, f"the augmented classifier step synchronized the "
           f"host: {aug_syncs[:1]}")
-    timer = StepTimer(images_per_step=50 * TRAIN_B)
     torch.cuda.synchronize()
-    with timer:             # one region of 50 steps, ended by one host read
-        fetch_sync([step(xs, ys, generator=g) for _ in range(50)])
-    aug_step_ms = timer.seconds_per_step * 1e3 / 50
+    t0 = time.perf_counter()    # one region of 50 steps, ended by a sync
+    for _ in range(50):
+        step(xs, ys, generator=g)
+    torch.cuda.synchronize()
+    aug_step_ms = (time.perf_counter() - t0) * 1e3 / 50
     # where the CLI-default step's time goes (fp32, chunks with recompute)
     run = lambda perm: exp.epoch_fn(  # noqa: E731
         exp.state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,

@@ -9,6 +9,10 @@ path runs what depends on x alone (q(z|x); for the two-level models q(z2|x)
 and the x-side features of q(z1|x,z2)) once per chunk, and gives the
 PixelHVAE's teacher-forced decoder the repeated x; the generic path
 (``force_generic``) runs the whole forward per round, on the same noise.
+Under a profiler a chunk is an ``evae.iwae.chunk`` range over
+``evae.iwae.encode`` and one ``evae.iwae.round`` a round, which holds
+``evae.iwae.decode`` and the prior's ``evae.prior.lse``; the eval bank is
+``evae.eval_bank`` (train/profiling.py's ``span``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
 from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
 from exemplar_vae_tpu_torch.train.loss import Bank, elbo_terms, eval_log_p_top
+from exemplar_vae_tpu_torch.train.profiling import span
 
 
 def model_device(model) -> torch.device:
@@ -51,6 +56,10 @@ def make_eval_bank_fn(model, cfg: Config, mesh=None):
     def build_bank(bank: Bank) -> Bank:
         if cfg.prior != "exemplar_prior":
             return bank
+        with span("evae.eval_bank"):
+            return _build(bank)
+
+    def _build(bank: Bank) -> Bank:
         dev = model_device(model)
         imgs = as_tensor(bank.images, dev)
         if imgs.dtype == torch.uint8:
@@ -126,30 +135,37 @@ def make_iwae_fn(model, cfg: Config, force_generic: bool = False):
     two_level = isinstance(model, TwoLevelMLPCore)
 
     def round_terms(x_rep, enc, bank, e, generator):
-        """(t*r,) log importance weights of one round."""
+        """(t*r,) log importance weights of one round: the decode side in
+        evae.iwae.decode, the prior (eval_log_p_top) in evae.prior.lse."""
         if enc is None:                                  # generic
-            re, kl, _ = elbo_terms(model, x_rep, cfg, bank=bank, train=False,
-                                   eps=e, generator=generator)
+            with span("evae.iwae.decode"):
+                re, kl, _ = elbo_terms(model, x_rep, cfg, bank=bank,
+                                       train=False, eps=e,
+                                       generator=generator)
             return re - kl
         if not two_level:
             mu_rep, lv_rep = enc
-            z = reparameterize(mu_rep, lv_rep, eps=e, generator=generator)
-            x_mean, x_logvar = model.decode(z)
-            re = reconstruction_log_lik(x_rep, x_mean, x_logvar,
-                                        cfg.input_type)
-            log_q = log_normal_diag(z, mu_rep, lv_rep)
+            with span("evae.iwae.decode"):
+                z = reparameterize(mu_rep, lv_rep, eps=e, generator=generator)
+                x_mean, x_logvar = model.decode(z)
+                re = reconstruction_log_lik(x_rep, x_mean, x_logvar,
+                                            cfg.input_type)
+                log_q = log_normal_diag(z, mu_rep, lv_rep)
             return re - (log_q - eval_log_p_top(model, z, cfg, bank))
         mu_rep, lv_rep, hx_rep = enc
         e2, e1 = (None, None) if e is None else e
-        z2 = reparameterize(mu_rep, lv_rep, eps=e2, generator=generator)
-        q1_mean, q1_logvar = model.q_z1_from_cache(hx_rep, z2)
-        z1 = reparameterize(q1_mean, q1_logvar, eps=e1, generator=generator)
-        p1_mean, p1_logvar = model.p_z1(z2)
-        extra_kl = (log_normal_diag(z1, q1_mean, q1_logvar)
-                    - log_normal_diag(z1, p1_mean, p1_logvar))
-        x_mean, x_logvar = model.decode_x(x_rep, z1, z2)
-        re = reconstruction_log_lik(x_rep, x_mean, x_logvar, cfg.input_type)
-        log_q = log_normal_diag(z2, mu_rep, lv_rep)
+        with span("evae.iwae.decode"):
+            z2 = reparameterize(mu_rep, lv_rep, eps=e2, generator=generator)
+            q1_mean, q1_logvar = model.q_z1_from_cache(hx_rep, z2)
+            z1 = reparameterize(q1_mean, q1_logvar, eps=e1,
+                                generator=generator)
+            p1_mean, p1_logvar = model.p_z1(z2)
+            extra_kl = (log_normal_diag(z1, q1_mean, q1_logvar)
+                        - log_normal_diag(z1, p1_mean, p1_logvar))
+            x_mean, x_logvar = model.decode_x(x_rep, z1, z2)
+            re = reconstruction_log_lik(x_rep, x_mean, x_logvar,
+                                        cfg.input_type)
+            log_q = log_normal_diag(z2, mu_rep, lv_rep)
         return re - (log_q - eval_log_p_top(model, z2, cfg, bank) + extra_kl)
 
     @torch.no_grad()
@@ -159,36 +175,43 @@ def make_iwae_fn(model, cfg: Config, force_generic: bool = False):
         (rounds, t*r, Dz), or for the two-level models the pair
         ((rounds, t*r, z2), (rounds, t*r, z1)); else it is drawn from
         ``generator``."""
+        with span("evae.iwae.chunk"):
+            return _chunk_nll(x_chunk_raw, bank, rounds, r, generator, eps)
+
+    def _chunk_nll(x_chunk_raw, bank, rounds, r, generator, eps):
         dev = model_device(model)
-        x = preprocess_batch(as_tensor(x_chunk_raw, dev),
-                             input_type=cfg.input_type,
-                             dynamic_binarization=cfg.dynamic_binarization,
-                             train=False)
-        t = x.shape[0]
-        if eps is not None:
-            want = ([(rounds, t * r, cfg.z2_size), (rounds, t * r, cfg.z1_size)]
-                    if two_level else [(rounds, t * r, cfg.z1_size)])
-            got = [tuple(e.shape) for e in (eps if two_level else [eps])]
-            if got != want:
-                raise ValueError(f"eps must be {want}, got {got}")
-        x_rep = torch.repeat_interleave(x, r, dim=0)
-        enc = None
-        if not force_generic:
-            q_mean, q_logvar = model.encode_top(x)
-            enc = (torch.repeat_interleave(q_mean, r, dim=0),
-                   torch.repeat_interleave(q_logvar, r, dim=0))
-            if two_level:
-                enc += (torch.repeat_interleave(model.q_z1_cache(x), r,
-                                                dim=0),)
-        m = torch.full((t,), -1e30, dtype=torch.float32, device=dev)
-        s = torch.zeros((t,), dtype=torch.float32, device=dev)
+        with span("evae.iwae.encode"):
+            x = preprocess_batch(as_tensor(x_chunk_raw, dev),
+                                 input_type=cfg.input_type,
+                                 dynamic_binarization=cfg.dynamic_binarization,
+                                 train=False)
+            t = x.shape[0]
+            if eps is not None:
+                want = ([(rounds, t * r, cfg.z2_size),
+                         (rounds, t * r, cfg.z1_size)]
+                        if two_level else [(rounds, t * r, cfg.z1_size)])
+                got = [tuple(e.shape) for e in (eps if two_level else [eps])]
+                if got != want:
+                    raise ValueError(f"eps must be {want}, got {got}")
+            x_rep = torch.repeat_interleave(x, r, dim=0)
+            enc = None
+            if not force_generic:
+                q_mean, q_logvar = model.encode_top(x)
+                enc = (torch.repeat_interleave(q_mean, r, dim=0),
+                       torch.repeat_interleave(q_logvar, r, dim=0))
+                if two_level:
+                    enc += (torch.repeat_interleave(model.q_z1_cache(x), r,
+                                                    dim=0),)
+            m = torch.full((t,), -1e30, dtype=torch.float32, device=dev)
+            s = torch.zeros((t,), dtype=torch.float32, device=dev)
         for i in range(rounds):
-            a = round_terms(x_rep, enc, bank, _eps_at(eps, i),
-                            generator).reshape(t, r)
-            m_new = torch.maximum(m, torch.amax(a, dim=1))
-            s = s * torch.exp(m - m_new) + torch.sum(
-                torch.exp(a - m_new[:, None]), dim=1)
-            m = m_new
+            with span("evae.iwae.round"):
+                a = round_terms(x_rep, enc, bank, _eps_at(eps, i),
+                                generator).reshape(t, r)
+                m_new = torch.maximum(m, torch.amax(a, dim=1))
+                s = s * torch.exp(m - m_new) + torch.sum(
+                    torch.exp(a - m_new[:, None]), dim=1)
+                m = m_new
         return -(m + torch.log(s) - math.log(rounds * r))
 
     def calculate_likelihood(test_images_raw, bank, s_total: Optional[int] = None,

@@ -17,6 +17,7 @@ Noise: the reparameterization draw is injected (``eps``) or drawn from
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Any, NamedTuple, Optional
 
@@ -29,6 +30,7 @@ from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
 from exemplar_vae_tpu_torch.ops.knn import (dedup_valid_mask,
                                             encode_bank_with_grad, knn_indices)
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
+from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
 
 
 class Bank(NamedTuple):
@@ -105,35 +107,59 @@ def approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
     the selection's B: per-row support then re-encodes only those rows'
     neighbours, the batch union every selected row. ``bank_u`` injects the
     uniforms of a stochastic raw-bank preprocessing (the re-encoded rows'),
-    else they come from ``generator``."""
-    idx = select(out.q_mean, bank.cache_means, bank.valid,
-                 cfg.approximate_k)                             # (B, K)
+    else they come from ``generator``.
+
+    ``approx_log_p_top.rows`` counts the bank rows re-encoded with
+    gradients (B*K a call, a rank's rows of it on the mesh's per-row
+    support). While a profiler runs, ``approx_log_p_top.kept`` also keeps
+    each call's count before it and its selection of those rows (a
+    reference, no copy), so that a reader can take the count's change over
+    the profiled stretch and the distinct rows of each selection."""
+    with span("evae.prior.knn"):
+        idx = select(out.q_mean, bank.cache_means, bank.valid,
+                     cfg.approximate_k)                         # (B, K)
     lo, hi = batch_rows or (0, idx.shape[0])
-    flat_idx = idx.reshape(-1)
-    flat = gather(bank.images, flat_idx)                        # (B*K, ...)
-    ex_idx = gather(bank.data_idx, idx)                         # (B, K)
     union = cfg.approximate_support == "batch_union"
-    if not union:
-        k = idx.shape[1]
-        flat, ex_idx = flat[lo * k:hi * k], ex_idx[lo:hi]
-    if flat.dtype == torch.uint8:
-        flat = bank_pre_fn(cfg, generator)(flat, u=bank_u)
-    if cfg.approx_remat:
-        means = checkpoint(model.encode_top_mean, flat, use_reentrant=False)
-    else:
-        means = model.encode_top_mean(flat)
-    if union:
-        # every point's mixture runs over all B*K selected exemplars, repeats
-        # masked so that each unique exemplar counts once. The scan, not the
-        # kernel: the support is only B*K columns, as in the JAX package
+    with span("evae.prior.reencode"):
+        flat_idx = idx.reshape(-1)
+        flat = gather(bank.images, flat_idx)                    # (B*K, ...)
+        ex_idx = gather(bank.data_idx, idx)                     # (B, K)
+        chosen = idx
+        if not union:
+            k = idx.shape[1]
+            flat, ex_idx = flat[lo * k:hi * k], ex_idx[lo:hi]
+            chosen = idx[lo:hi]
+        if flat.dtype == torch.uint8:
+            flat = bank_pre_fn(cfg, generator)(flat, u=bank_u)
+        if cfg.approx_remat:
+            means = checkpoint(model.encode_top_mean, flat,
+                               use_reentrant=False)
+        else:
+            means = model.encode_top_mean(flat)
+    if profiler_active():
+        approx_log_p_top.kept.append((approx_log_p_top.rows, chosen))
+    approx_log_p_top.rows += flat.shape[0]
+    with span("evae.prior.lse"):
+        if union:
+            # every point's mixture runs over all B*K selected exemplars,
+            # repeats masked so that each unique exemplar counts once. The
+            # scan, not the kernel: the support is only B*K columns, as in
+            # the JAX package
+            return model.log_p_z_top(
+                out.z_top, bank_means=means, data_idx=loo_idx,
+                exemplar_idx=ex_idx.reshape(-1),
+                valid=dedup_valid_mask(flat_idx), log_denom=log_denom,
+                impl="scan", block_n=cfg.prior_block_n)
         return model.log_p_z_top(
-            out.z_top, bank_means=means, data_idx=loo_idx,
-            exemplar_idx=ex_idx.reshape(-1),
-            valid=dedup_valid_mask(flat_idx), log_denom=log_denom,
-            impl="scan", block_n=cfg.prior_block_n)
-    return model.log_p_z_top(
-        out.z_top, bank_means=means.reshape(ex_idx.shape + (means.shape[-1],)),
-        data_idx=loo_idx, exemplar_idx=ex_idx, log_denom=log_denom)
+            out.z_top,
+            bank_means=means.reshape(ex_idx.shape + (means.shape[-1],)),
+            data_idx=loo_idx, exemplar_idx=ex_idx, log_denom=log_denom)
+
+
+approx_log_p_top.rows = 0
+# (rows before the call, its selection) of the latest calls made under a
+# profiler, newest last
+approx_log_p_top.kept = collections.deque(maxlen=256)
 
 
 def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
@@ -159,15 +185,18 @@ def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
     if bank.images.dtype == torch.uint8:
         pre = bank_pre_fn(cfg, generator)
         draw = bank_draw_fn(cfg, generator)
-    means = encode_bank_with_grad(model, bank.images,
-                                  chunk=cfg.exact_reencode_chunk,
-                                  remat=cfg.exact_remat, pre_fn=pre,
-                                  draw_fn=draw)
-    return model.log_p_z_top(
-        out.z_top, bank_means=means, data_idx=loo_idx,
-        exemplar_idx=bank.data_idx, valid=bank.valid, log_denom=log_denom,
-        impl="pallas" if cfg.use_pallas_prior else "scan",
-        block_n=cfg.prior_block_n)
+    with span("evae.prior.reencode"):
+        means = encode_bank_with_grad(model, bank.images,
+                                      chunk=cfg.exact_reencode_chunk,
+                                      remat=cfg.exact_remat, pre_fn=pre,
+                                      draw_fn=draw)
+    with span("evae.prior.lse"):
+        return model.log_p_z_top(
+            out.z_top, bank_means=means, data_idx=loo_idx,
+            exemplar_idx=bank.data_idx, valid=bank.valid,
+            log_denom=log_denom,
+            impl="pallas" if cfg.use_pallas_prior else "scan",
+            block_n=cfg.prior_block_n)
 
 
 def eval_log_p_top(model, z, cfg: Config, bank: Optional[Bank]):
@@ -177,11 +206,12 @@ def eval_log_p_top(model, z, cfg: Config, bank: Optional[Bank]):
     if cfg.prior != "exemplar_prior":
         return model.log_p_z_top(z)
     impl = "pallas" if cfg.use_pallas_prior else "scan"
-    return model.log_p_z_top(
-        z, bank_means=bank.cache_means, data_idx=None,
-        exemplar_idx=bank.data_idx, valid=bank.valid,
-        log_denom=bank_log_denom(cfg, bank, False), impl=impl,
-        block_n=cfg.prior_block_n)
+    with span("evae.prior.lse"):
+        return model.log_p_z_top(
+            z, bank_means=bank.cache_means, data_idx=None,
+            exemplar_idx=bank.data_idx, valid=bank.valid,
+            log_denom=bank_log_denom(cfg, bank, False), impl=impl,
+            block_n=cfg.prior_block_n)
 
 
 def elbo_terms(model, x, cfg: Config, *, data_idx=None,

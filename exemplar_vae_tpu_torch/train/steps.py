@@ -12,6 +12,13 @@ exemplar_vae_tpu/train/steps.py).
   tests can replay the JAX package's draws. The step draws the whole
   batch's noise up front, in one process's order (draw_step_noise), and on
   the data mesh each rank then keeps its own rows of it.
+* Under a profiler each step is an ``evae.step`` range over
+  ``evae.step.inputs`` (the draws, the preprocessing), ``evae.step.forward``
+  (whose prior opens ``evae.prior.*``, train/loss.py), ``evae.step.backward``
+  and ``evae.step.optimizer``; the epoch loop's row gather before it is an
+  ``evae.step.inputs`` of its own, and the epoch's bank and the cache
+  refresh are ``evae.epoch.bank`` and ``evae.cache_refresh``
+  (train/profiling.py's ``span``: nothing without a profiler).
 
 The JAX package's ``epoch_splits`` and ``gather_in_scan`` work around XLA
 and TPU limits and have no counterpart here; the loop uses no CUDA graph.
@@ -32,6 +39,7 @@ from exemplar_vae_tpu_torch.ops.preprocess import (preprocess_batch,
                                                    train_draws_uniforms)
 from exemplar_vae_tpu_torch.train.loss import Bank, bank_pre_fn, batch_loss
 from exemplar_vae_tpu_torch.train.optimizer import Adam, make_optimizer
+from exemplar_vae_tpu_torch.train.profiling import span
 
 
 @dataclass
@@ -160,34 +168,41 @@ def make_train_step(cfg: Config, *, bank_preprocessed: bool = False,
 
     def train_step(state: TrainState, x_raw, data_idx, bank, beta, *,
                    generator=None, u=None, eps=None):
-        noise, bank = draw_step_noise(
-            state.model, cfg, x_raw, bank, generator, u=u, eps=eps,
-            preprocess_bank=not bank_preprocessed, mesh=mesh)
-        kw = {}
-        if mesh is not None:
-            b = x_raw.shape[0]
-            lo, hi = mesh.batch_rows(b)
-            x_raw, data_idx = x_raw[lo:hi], data_idx[lo:hi]
-            noise = noise.rows(lo, hi, k_rows)
-            kw = {k: functools.partial(f, batch_size=b)
-                  for k, f in sharded.items()}
-            kw["batch_size"] = b
-        x = preprocess_batch(x_raw, input_type=cfg.input_type,
-                             dynamic_binarization=cfg.dynamic_binarization,
-                             train=True, generator=generator, u=noise.u)
-        state.opt.zero_grad(set_to_none=True)
-        loss, aux = batch_loss(state.model, x, beta, cfg, data_idx=data_idx,
-                               bank=bank, train=True, eps=noise.eps,
-                               bank_u=noise.bank_u, generator=generator,
-                               **kw)
-        if mesh is None:
-            loss.backward()
-        else:
-            (loss * mesh.size).backward()
-            mesh.average_grads(state.model.parameters())
-        state.opt.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in aux.items()}
+        with span("evae.step"):
+            with span("evae.step.inputs"):
+                noise, bank = draw_step_noise(
+                    state.model, cfg, x_raw, bank, generator, u=u, eps=eps,
+                    preprocess_bank=not bank_preprocessed, mesh=mesh)
+                kw = {}
+                if mesh is not None:
+                    b = x_raw.shape[0]
+                    lo, hi = mesh.batch_rows(b)
+                    x_raw, data_idx = x_raw[lo:hi], data_idx[lo:hi]
+                    noise = noise.rows(lo, hi, k_rows)
+                    kw = {k: functools.partial(f, batch_size=b)
+                          for k, f in sharded.items()}
+                    kw["batch_size"] = b
+                x = preprocess_batch(
+                    x_raw, input_type=cfg.input_type,
+                    dynamic_binarization=cfg.dynamic_binarization,
+                    train=True, generator=generator, u=noise.u)
+            state.opt.zero_grad(set_to_none=True)
+            with span("evae.step.forward"):
+                loss, aux = batch_loss(state.model, x, beta, cfg,
+                                       data_idx=data_idx, bank=bank,
+                                       train=True, eps=noise.eps,
+                                       bank_u=noise.bank_u,
+                                       generator=generator, **kw)
+            with span("evae.step.backward"):
+                if mesh is None:
+                    loss.backward()
+                else:
+                    (loss * mesh.size).backward()
+                    mesh.average_grads(state.model.parameters())
+            with span("evae.step.optimizer"):
+                state.opt.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in aux.items()}
 
     return train_step
 
@@ -211,16 +226,19 @@ def make_epoch_fn(cfg: Config, mesh=None):
                  generator=None, noise=None):
         steps, batch = perm.shape
         if cfg.prior == "exemplar_prior":
-            bank = _preprocess_bank(bank, cfg, generator, mesh)
+            with span("evae.epoch.bank"):
+                bank = _preprocess_bank(bank, cfg, generator, mesh)
         x2d = train_x.reshape(train_x.shape[0], -1)
         auxs = []
         for i in range(steps):
-            rows = perm[i]
-            x = x2d.index_select(0, rows).reshape((batch,) + train_x.shape[1:])
+            with span("evae.step.inputs"):
+                rows = perm[i]
+                x = x2d.index_select(0, rows).reshape(
+                    (batch,) + train_x.shape[1:])
+                idx = train_idx.index_select(0, rows)
             u, eps = noise[i] if noise is not None else (None, None)
-            state, aux = train_step(state, x, train_idx.index_select(0, rows),
-                                    bank, beta, generator=generator, u=u,
-                                    eps=eps)
+            state, aux = train_step(state, x, idx, bank, beta,
+                                    generator=generator, u=u, eps=eps)
             auxs.append(aux)
         if mesh is None:
             return state, {k: torch.stack([a[k] for a in auxs]).mean()
@@ -244,14 +262,15 @@ def make_cache_refresh(model, cfg: Config):
 
     @torch.no_grad()
     def refresh(bank_images_raw, generator=None):
-        if bank_images_raw.dtype == torch.uint8:
-            return encode_bank(model, bank_images_raw,
-                               chunk=cfg.exact_reencode_chunk,
-                               pre_fn=bank_pre_fn(cfg, generator))
-        imgs = preprocess_batch(bank_images_raw, input_type=cfg.input_type,
-                                dynamic_binarization=cfg.dynamic_binarization,
-                                train=cfg.bank_stochastic_preprocess,
-                                generator=generator)
-        return encode_bank(model, imgs, chunk=cfg.exact_reencode_chunk)
+        with span("evae.cache_refresh"):
+            if bank_images_raw.dtype == torch.uint8:
+                return encode_bank(model, bank_images_raw,
+                                   chunk=cfg.exact_reencode_chunk,
+                                   pre_fn=bank_pre_fn(cfg, generator))
+            imgs = preprocess_batch(
+                bank_images_raw, input_type=cfg.input_type,
+                dynamic_binarization=cfg.dynamic_binarization,
+                train=cfg.bank_stochastic_preprocess, generator=generator)
+            return encode_bank(model, imgs, chunk=cfg.exact_reencode_chunk)
 
     return refresh

@@ -357,18 +357,6 @@ def test_artifact_error_is_recorded_not_raised(tmp_path, monkeypatch):
         assert json.load(f) == results
 
 
-def test_step_timer_counts():
-    from exemplar_vae_tpu_torch.train.profiling import StepTimer, fetch_sync
-    t = StepTimer(images_per_step=100, distances_per_step=1000)
-    x = torch.ones(16)
-    for _ in range(3):
-        with t:
-            assert fetch_sync({"a": [x * 2]}) == 2.0
-    r = t.report()
-    assert r["steps"] == 3 and r["images_per_sec"] > 0
-    assert r["distances_per_sec"] == pytest.approx(10 * r["images_per_sec"])
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     from exemplar_vae_tpu_torch.train.profiling import trace
     d = tmp_path / "prof"
