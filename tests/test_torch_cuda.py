@@ -610,3 +610,45 @@ def test_cuda_exported_program_launches_the_kernel(dev, tmp_path):
     want = score(bank_x[:4], eb.cache_means, eb.data_idx, eb.valid,
                  generator=torch.Generator(dev).manual_seed(5))
     assert np.array_equal(per, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_config4_subpixel_decode_on_card_matches_transpose_route(
+        dev, monkeypatch):
+    """Config 4's decoder on 500 samples on the card, TF32 off: the
+    sub-pixel route (no_grad) against the F.conv_transpose2d formulation,
+    both fp32 through cuDNN: rtol 1e-5 / atol 1e-5."""
+    import torch.nn.functional as F
+
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model, layers
+
+    def transpose_route(x, w_hwio, b, stride):
+        (ph, oph, ch), (pw, opw, cw) = (
+            layers._transpose_pads(w_hwio.shape[0], stride[0]),
+            layers._transpose_pads(w_hwio.shape[1], stride[1]))
+        y = F.conv_transpose2d(x, w_hwio.permute(2, 3, 0, 1).flip(2, 3), b,
+                               stride=stride, padding=(ph, pw),
+                               output_padding=(oph, opw))
+        return y[:, :, :y.shape[2] - ch, :y.shape[3] - cw]
+
+    cfg = Config(model_name="convhvae_2level", hidden_size=300, z1_size=40,
+                 z2_size=40, input_size=(3, 64, 64), input_type="continuous",
+                 dynamic_binarization=False, number_components=300)
+    model = create_model(cfg, device=dev, seed=0).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    z1 = torch.randn((500, 40), generator=g, device=dev)
+    z2 = torch.randn((500, 40), generator=g, device=dev)
+    before = layers.conv_transpose_same.subpixel
+    with torch.no_grad():
+        assert not torch.backends.cudnn.allow_tf32
+        got = model.decode(z1, z2)
+        assert layers.conv_transpose_same.subpixel == before + 2
+        monkeypatch.setattr(layers.GatedConvTranspose2d, "_conv",
+                            staticmethod(transpose_route))
+        want = model.decode(z1, z2)
+        assert not torch.backends.cudnn.allow_tf32
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        assert a.shape == (500, 64, 64, 3)
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
