@@ -11,7 +11,10 @@ over the observed x, the masks enforcing causality (``decode(x, z1, z2)``).
 The latents enter as a context map ``ctx_proj(z1 || z2)`` reshaped to (H, W,
 F) in flax's NHWC order, added to the input of every masked layer. The
 stack runs on NCHW (ctx permuted once), the likelihood params come back
-NHWC.
+NHWC. Under a profiler the teacher-forced decode opens
+``evae.pixelcnn.context`` (the context map) and ``evae.pixelcnn.stack``
+(the masked stack and heads); ``masked_stack.rows`` counts the rows that
+its stack calls decode.
 
 Generation is sequential over the H*W pixels. ``generate_from_top`` decodes
 only the (w+1, 2w+1) receptive-field crop around each pixel, w = 2 +
@@ -29,6 +32,8 @@ nothing back to the host.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +45,7 @@ from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.models.layers import (Conv, Dense, MaskedConv2d,
                                                   compute_dtype,
                                                   p_logvar_activation)
+from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
 
 
 class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
@@ -94,7 +100,10 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
     def decode(self, x, z1, z2):
         """Teacher-forced likelihood params of NHWC ``x``: causal in x by
         the masks, parallel over pixels."""
-        mean, logvar = self._stack(x.permute(0, 3, 1, 2), self._ctx(z1, z2))
+        with span("evae.pixelcnn.context"):
+            ctx = self._ctx(z1, z2)
+        with span("evae.pixelcnn.stack"):
+            mean, logvar = masked_stack(self, x.permute(0, 3, 1, 2), ctx)
         return mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)
 
     decode_x = decode
@@ -163,3 +172,21 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
             mean, _ = self.decode(canvas, z1, z2)
             canvas[:, r, col, :] = self._sample(mean[:, r, col, :], u, i)
         return canvas
+
+
+def masked_stack(model, x, ctx):
+    """``model``'s teacher-forced masked stack and heads over NCHW ``x``
+    with its context map ``ctx`` (``PixelHVAE._stack``), counted.
+
+    ``masked_stack.rows`` sums the rows of every call. While a profiler
+    runs, ``masked_stack.kept`` also keeps each call's count before it and
+    the model's Config (the stack's shape), so that a reader can take the
+    count's change over the profiled stretch."""
+    if profiler_active():
+        masked_stack.kept.append((masked_stack.rows, model.cfg))
+    masked_stack.rows += x.shape[0]
+    return model._stack(x, ctx)
+
+
+masked_stack.rows = 0
+masked_stack.kept = collections.deque(maxlen=256)
