@@ -18,7 +18,13 @@ Phases; any failure exits non-zero before the result lines:
    25 000, LOO), with ~1% invalid exemplars (N = 50 000: an N that no tile
    divides); kernel, plain, library-yardstick and bound times (the library
    yardstick is freed before phase 5); at the train shape, the entry
-   against the custom op's CUDA kernel function alone (the op's host cost);
+   against the custom op's CUDA kernel function alone (the op's host cost).
+   [epilogue]: the PixelHVAE masked layers' epilogue (ops/masked_epilogue.py)
+   at the serving shape, one masked layer of a pixelhvae-exact-score round
+   (50 000 rows of (64, 28, 28), fp32), against its plain version (bias
+   add, context add, ReLU) on a copy of the same inputs: bitwise; kernel
+   and plain ms by CUDA events and the bound (h and ctx read and h written
+   once over HBM);
 4. [ingest]: the native parsers (data/native_ingest.py, built with g++)
    against numpy on a 60 000 x 28 x 28 IDX file and a 10 000-row .amat
    file: equal arrays, the build's and both parsers' times (host only);
@@ -106,7 +112,10 @@ Phases; any failure exits non-zero before the result lines:
    1e-5 of its mean; the model exported, loaded on the card, its generate
    equal to the live sampler bitwise; (g) one CLI epoch (validation/test
    256, S = MB = 8): finite metrics, the five PNG grids, the launches its
-   config implies;
+   config implies. The masked epilogue's launches, counted per path: 5 a
+   round of (e) and 5 a pixel of the naive sampler (the no-grad fp32
+   stack), none in training, in the bf16 validation and CLI epoch or in
+   the crop sampler;
 10. BASELINE Config 5, the run's lifecycle and exemplar-guided augmentation
    at Config 1's full width: the VAE 784-300-300-40 on dynamic_mnist (with
    no IDX files on disk its labelled synthetic stand-in, 50 000 training
@@ -253,6 +262,9 @@ C5_GRID_SHAPE = (5 * 30 + 2, 5 * 30 + 2, 1)
 # either side of u)
 PIX_T, PIX_ROWS, PIX_GEN = 100, 100, 16
 PIX_U_MARGIN = 1e-5
+# the masked epilogue's serving shape: one masked layer's output a round of
+# pixelhvae-exact-score (100 points x MB = 500 rows, 64 features, 28 x 28)
+EPI_SHAPE = (50_000, 64, 28, 28)
 # [ingest]: an MNIST-sized IDX file and a static-MNIST-sized .amat split
 INGEST_IDX, INGEST_AMAT = (60_000, 28, 28), (10_000, 784)
 CHILD_TIMEOUT_S = 600
@@ -466,6 +478,43 @@ def kernel_phase(pl):
     del banks
     torch.cuda.empty_cache()
     return results
+
+
+def epilogue_phase(me):
+    """The masked layers' epilogue at EPI_SHAPE against its plain version on
+    a copy of the same inputs (bitwise: the same fp32 sums in the same
+    order), its ms and the plain version's by CUDA events, and its bound:
+    h and ctx read and h written once over HBM."""
+    g = torch.Generator("cuda").manual_seed(11)
+    h = torch.randn(EPI_SHAPE, generator=g, device="cuda")
+    bias = torch.randn((EPI_SHAPE[1],), generator=g, device="cuda")
+    ctx = torch.randn(EPI_SHAPE, generator=g, device="cuda")
+    want = me.masked_epilogue_plain(h.clone(), bias, ctx)
+    me.masked_epilogue.launches = 0
+    got = me.masked_epilogue(h, bias, ctx)
+    torch.cuda.synchronize()
+    check(me.masked_epilogue.launches == 1, "masked_epilogue launched "
+          f"{me.masked_epilogue.launches} times in one call")
+    max_abs = float((got - want).abs().max())
+    check(torch.equal(got, want), f"masked_epilogue vs plain at {EPI_SHAPE}: "
+          f"not bitwise equal, max abs diff {max_abs:.3e}")
+    check(bool((got == 0).any()) and bool((got > 0).any()),
+          "masked_epilogue check: no value on each side of the ReLU")
+    del want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: me.masked_epilogue(h, bias, ctx), 50)
+    plain_ms = cuda_ms(lambda: me.masked_epilogue_plain(h, bias, ctx), 10,
+                       warmup=1)
+    nbytes = 3 * h.numel() * h.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[epilogue] masked_epilogue {EPI_SHAPE} fp32: bitwise equal to "
+        f"plain; ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"(HBM bytes: {nbytes / 1e9:.2f} GB; {100 * bound_ms / ms:.1f}% of "
+        f"it)")
+    del h, ctx
+    torch.cuda.empty_cache()
+    return dict(shape=list(EPI_SHAPE), max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def serving_phase(pl):
@@ -1305,6 +1354,7 @@ def pixel_phase(pl, snap_dir):
                                                reference_arg_parser)
     from exemplar_vae_tpu_torch.main import main as cli_main
     from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops import masked_epilogue as me
     from exemplar_vae_tpu_torch.serve import (ServingBundle,
                                               export_serving_bundle,
                                               make_serving_fns)
@@ -1344,12 +1394,13 @@ def pixel_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the train part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = me.masked_epilogue.launches = 0
     t0 = time.perf_counter()
     exp.state, metrics = run(perm)
     loss = float(metrics["loss"])           # host read: ends the timed call
     dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
+    epi = {"pixel_train": me.masked_epilogue.launches}
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"PixelHVAE training loss {loss}")
@@ -1407,11 +1458,12 @@ def pixel_phase(pl, snap_dir):
     del res, gk, gs, m
 
     # (d) the validation ELBO (eval bank encode + 100 batches)
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = me.masked_epilogue.launches = 0
     t0 = time.perf_counter()
     val = exp.validate()
     val_s = time.perf_counter() - t0
     val_launches = pl.pairwise_lse.launches
+    epi["pixel_validation"] = me.masked_epilogue.launches
     want_val = -(-C3_VAL // cfg.test_batch_size)
     check(all(math.isfinite(v) for v in val), f"PixelHVAE validation {val}")
     check(val_launches == want_val, f"validation launched the kernel "
@@ -1438,11 +1490,12 @@ def pixel_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the IWAE part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = me.masked_epilogue.launches = 0
     t0 = time.perf_counter()
     nll_k = iwae_k(test_x, eb, rounds, r, eps=eps).cpu()
     iwae_ms = (time.perf_counter() - t0) * 1e3
     iwae_launches = pl.pairwise_lse.launches
+    epi["pixel_iwae"] = epilogue_launches = me.masked_epilogue.launches
     # ---- end ----
     iwae_gb = torch.cuda.max_memory_allocated() / 1e9
     nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False)).chunk_nll(
@@ -1450,6 +1503,10 @@ def pixel_phase(pl, snap_dir):
     err = float((nll_k - nll_s).abs().max())
     check(iwae_launches == rounds, f"the PixelHVAE IWAE request launched the "
           f"kernel {iwae_launches} times, not {rounds}")
+    want_epi = rounds * (1 + c32.pixelcnn_layers)
+    check(epilogue_launches == want_epi, f"the PixelHVAE IWAE request "
+          f"launched the masked epilogue {epilogue_launches} times, not "
+          f"{want_epi}")
     check(nll_k.shape == (PIX_T,) and bool(torch.isfinite(nll_k).all()),
           "PixelHVAE IWAE NLL not finite")
     check(bool(((nll_k - nll_s).abs() <= NLL_RTOL * nll_s.abs()).all()),
@@ -1460,7 +1517,8 @@ def pixel_phase(pl, snap_dir):
         f"the decoder teacher-forced on the repeated x: {iwae_ms:.3f} ms "
         f"(warm, host clock); mean NLL {float(nll_k.mean()):.4f}; kernel vs "
         f"scan max abs diff {err:.3e} (rtol {NLL_RTOL}); pairwise_lse "
-        f"launches {iwae_launches}; peak memory {iwae_gb:.2f} GB")
+        f"launches {iwae_launches}; masked_epilogue launches "
+        f"{epilogue_launches}; peak memory {iwae_gb:.2f} GB")
     log_profile("pixel-iwae", 1, profile_ms(
         lambda: iwae_k(test_x, eb, rounds, r, eps=eps)), unit="request")
     del eps
@@ -1479,7 +1537,9 @@ def pixel_phase(pl, snap_dir):
     pl.pairwise_lse.launches = 0
     for name, fn in samplers.items():
         fn(z2, eps=noise)                                # warm-up
+        me.masked_epilogue.launches = 0
         ms[name] = wall_ms(lambda: out.setdefault(name, fn(z2, eps=noise)))
+        epi[f"pixel_sampler_{name}"] = me.masked_epilogue.launches
         prof = profile_ms(lambda: fn(z2, eps=noise))
         launches[name] = sum(c for op, _, c in prof[3]
                              if "LaunchKernel" in op)
@@ -1534,13 +1594,14 @@ def pixel_phase(pl, snap_dir):
             "--epochs", "1", "--S", "8", "--MB", "8", "--compute_dtype",
             "bfloat16", "--snapshot_dir", str(cli_dir)]
     buf = io.StringIO()
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = me.masked_epilogue.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         results = cli_main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     cli_launches = pl.pairwise_lse.launches
+    epi["pixel_cli_epoch"] = me.masked_epilogue.launches
     for line in buf.getvalue().splitlines():
         log(f"[pixel-cli] | {line}")
     c = config_from_args(reference_arg_parser().parse_args(argv))
@@ -1572,9 +1633,20 @@ def pixel_phase(pl, snap_dir):
         f"with recompute); loss {records[0]['loss']:.4f}, val_loss "
         f"{records[0]['val_loss']:.4f}, test_nll {results['test_nll']:.4f}; "
         f"five PNG grids decode; pairwise_lse launches {cli_launches}")
-    return {"pixel_train": train_launches, "pixel_validation": val_launches,
-            "pixel_iwae": iwae_launches, "pixel_samplers": sampler_launches,
-            "pixel_cli_epoch": cli_launches}
+    # the epilogue runs on the no-grad fp32 teacher-forced stack alone: the
+    # IWAE request (1 + layers a round) and the naive sampler (a decode a
+    # pixel); never in training, the bf16 validation and CLI epoch or the
+    # crop sampler
+    layers = 1 + cfg.pixelcnn_layers
+    want_epi = {"pixel_train": 0, "pixel_validation": 0,
+                "pixel_iwae": rounds * layers, "pixel_sampler_crop": 0,
+                "pixel_sampler_naive": 28 * 28 * layers, "pixel_cli_epoch": 0}
+    check(epi == want_epi, f"masked_epilogue launches per path {epi}, not "
+          f"{want_epi}")
+    log(f"[pixel] masked_epilogue launches per path: {epi}")
+    return ({"pixel_train": train_launches, "pixel_validation": val_launches,
+             "pixel_iwae": iwae_launches, "pixel_samplers": sampler_launches,
+             "pixel_cli_epoch": cli_launches}, epi)
 
 
 def ingest_phase():
@@ -2431,6 +2503,7 @@ def main():
         serve_bundle_child(Path(sys.argv[2]))
         return
     from exemplar_vae_tpu_torch.device import resolve_device
+    from exemplar_vae_tpu_torch.ops import masked_epilogue as me
     from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
 
     banned = banned_modules()
@@ -2446,6 +2519,8 @@ def main():
     t0 = time.perf_counter()
     build_s = pl.build(verbose=True)       # prints ptxas registers/spills
     log(f"[build] pairwise_lse.cu: nvcc + load {build_s:.2f} s")
+    log(f"[build] masked_epilogue.cu: nvcc + load "
+        f"{me.build(verbose=True):.2f} s")
 
     phase_s = {}
 
@@ -2456,6 +2531,7 @@ def main():
         return out
 
     kern = timed("kernel", kernel_phase, pl)
+    epi = timed("epilogue", epilogue_phase, me)
     timed("ingest", ingest_phase)
     launches, program_launches = timed("serve", serving_phase, pl)
     with tempfile.TemporaryDirectory() as snap:
@@ -2463,7 +2539,7 @@ def main():
                                              Path(snap))
         traj = timed("trajectory", trajectory_phase, pl, Path(snap))
         c3 = timed("config3", config3_phase, pl, Path(snap))
-        pix = timed("pixel", pixel_phase, pl, Path(snap))
+        pix, pix_epi = timed("pixel", pixel_phase, pl, Path(snap))
         c5 = timed("config5", config5_phase, pl, Path(snap))
         c4 = timed("config4", config4_phase, pl, Path(snap))
         sharded = timed("sharded", sharded_phase, pl, Path(snap))
@@ -2491,9 +2567,18 @@ def main():
         "library_ms": main_v["library_ms"],
         "variants": list(kern.values()),
     }
+    epi_entry = {
+        "name": "masked_epilogue", "route": "cuda",
+        "source": "exemplar_vae_tpu_torch/csrc/masked_epilogue.cu",
+        "replaces": None,
+        "launches": sum(pix_epi.values()), "launches_per_path": pix_epi,
+        "max_abs_err": epi["max_abs_err"], "ms": epi["ms"],
+        "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": epi["shape"],
+    }
     log(f"[done] {time.perf_counter() - t0:.1f} s after the build started; "
         f"seconds per phase: {phase_s}")
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, epi_entry]}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

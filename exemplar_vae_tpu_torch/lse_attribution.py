@@ -32,6 +32,7 @@ import time
 import torch
 
 from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
+from exemplar_vae_tpu_torch.ops.nvcc import BUILD_DIR
 
 _EPILOGUE = ("    // Epilogue, per row in base 2", "    __syncthreads();   // this stage is read")
 _SUM = """#pragma unroll
@@ -130,7 +131,7 @@ def main():
               "norms 10": (args[0] * s10, args[1] * s10) + args[2:]}
     want = {k: pl.pairwise_lse_plain(*a) for k, a in checks.items()}
     source = pl.SOURCE
-    out_dir = pl.BUILD_DIR / "variants"
+    out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     try:
         for name, src in variants(source.read_text()).items():

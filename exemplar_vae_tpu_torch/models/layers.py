@@ -307,10 +307,12 @@ class MaskedConv2d(nn.Module):
         self.register_buffer("mask", mask, persistent=False)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, *, bias: bool = True):
+        """The masked conv; with ``bias=False`` its raw sum, for a caller
+        that adds the bias in an epilogue of its own."""
         dt = self.dtype or self.kernel.dtype
         return conv_same(x.to(dt), (self.kernel * self.mask).to(dt),
-                         self.bias.to(dt), (1, 1))
+                         self.bias.to(dt) if bias else None, (1, 1))
 
 
 def compute_dtype(cfg):

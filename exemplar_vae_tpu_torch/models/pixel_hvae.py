@@ -10,11 +10,25 @@ Training and evaluation are teacher-forced: one pass of the masked stack
 over the observed x, the masks enforcing causality (``decode(x, z1, z2)``).
 The latents enter as a context map ``ctx_proj(z1 || z2)`` reshaped to (H, W,
 F) in flax's NHWC order, added to the input of every masked layer. The
-stack runs on NCHW (ctx permuted once), the likelihood params come back
-NHWC. Under a profiler the teacher-forced decode opens
-``evae.pixelcnn.context`` (the context map) and ``evae.pixelcnn.stack``
-(the masked stack and heads); ``masked_stack.rows`` counts the rows that
-its stack calls decode.
+stack runs in the memory format of cuDNN's conv kernels for the compute
+dtype, so that cuDNN transposes nothing: in fp32 NCHW-contiguous (x
+reshaped when C is 1, else copied; ``ctx_proj``'s GEMM writes the context
+NCHW, its kernel's columns and bias permuted into (F, H, W) order, so that
+each value is the same dot product), in bf16 channels-last (x's permuted
+view, the context a permuted view of the NHWC-ordered projection). The
+likelihood params come back NHWC. Under a profiler the teacher-forced
+decode opens ``evae.pixelcnn.context`` (the context map) and
+``evae.pixelcnn.stack`` (the masked stack and heads); ``masked_stack.rows``
+counts the rows that its stack calls decode.
+
+The teacher-forced stack takes one of two routes. With a gradient to carry
+(grad mode on and x, z or a parameter requiring grad), or in bf16, each
+masked layer is the conv with its bias, the context added in place and a
+ReLU. Otherwise (scoring, validation, the naive sampler) each masked conv
+runs without its bias, followed by one in-place pass of relu((conv + bias)
++ ctx) (``ops/masked_epilogue.py``; a CUDA kernel on the card), the other
+route's three passes in their order. ``masked_epilogue.launches`` counts
+1 + pixelcnn_layers a call of that route.
 
 Generation is sequential over the H*W pixels. ``generate_from_top`` decodes
 only the (w+1, 2w+1) receptive-field crop around each pixel, w = 2 +
@@ -45,6 +59,7 @@ from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.models.layers import (Conv, Dense, MaskedConv2d,
                                                   compute_dtype,
                                                   p_logvar_activation)
+from exemplar_vae_tpu_torch.ops.masked_epilogue import masked_epilogue
 from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
 
 
@@ -74,12 +89,36 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
             self.p_x_logvar_head = Conv(pf, c_in, dtype=dt, generator=g)
         self._setup_prior(generator)
 
+    def _channels_last(self) -> bool:
+        """The stack's memory format, that of cuDNN's conv kernels for the
+        compute dtype: channels-last in bf16, NCHW in fp32."""
+        return compute_dtype(self.cfg) is not None
+
     def _ctx(self, z1, z2):
-        """The context map, NCHW (a view of the NHWC-ordered projection)."""
-        ih, iw = self._hw
-        ctx = self.ctx_proj(torch.cat([z1, z2], dim=-1))
-        return ctx.reshape(z1.shape[0], ih, iw,
-                           self.cfg.pixelcnn_features).permute(0, 3, 1, 2)
+        """The context map (B, F, H, W) in the stack's memory format. In
+        fp32 NCHW-contiguous, from ``ctx_proj``'s GEMM over its kernel's
+        columns and its bias permuted from flax's (H, W, F) order into
+        (F, H, W) order."""
+        (ih, iw), pf = self._hw, self.cfg.pixelcnn_features
+        z = torch.cat([z1, z2], dim=-1)
+        if self._channels_last():
+            ctx = self.ctx_proj(z)
+            return ctx.reshape(z.shape[0], ih, iw, pf).permute(0, 3, 1, 2)
+        d = self.ctx_proj
+        kernel = d.kernel.view(-1, ih, iw, pf).permute(0, 3, 1, 2)
+        bias = d.bias.view(ih, iw, pf).permute(2, 0, 1)
+        ctx = torch.addmm(bias.reshape(-1), z,
+                          kernel.reshape(d.kernel.shape[0], -1))
+        return ctx.view(z.shape[0], pf, ih, iw)
+
+    def _fused_route(self, *inputs) -> bool:
+        """Whether the teacher-forced stack takes the fused epilogue: fp32
+        (so NCHW), and no gradient to carry (grad mode off, or nothing of
+        ``inputs`` and the params requiring grad)."""
+        if self._channels_last():
+            return False
+        return not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*inputs, *self.parameters())))
 
     def _stack(self, x, ctx, valid=None):
         """Masked stack and heads over NCHW ``x``: (mean, logvar), NCHW.
@@ -91,7 +130,30 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
             if valid is not None:
                 h = h * valid
             h = layer(h).add_(ctx)
-        h = torch.relu(h)
+        return self._heads(torch.relu(h))
+
+    def _teacher_forced(self, x, ctx, fused):
+        """The stack and heads over NHWC ``x`` in the stack's memory format
+        (in NCHW a reshape when C is 1) and the context map ``ctx``:
+        (mean, logvar), NCHW; with ``fused`` through ``_stack_fused``."""
+        n, ih, iw, c = x.shape
+        if self._channels_last():
+            x = x.permute(0, 3, 1, 2)
+        else:
+            x = (x.reshape(n, 1, ih, iw) if c == 1 else
+                 x.permute(0, 3, 1, 2).contiguous())
+        return (self._stack_fused if fused else self._stack)(x, ctx)
+
+    def _stack_fused(self, x, ctx):
+        """``_stack`` without a gradient, in fp32, over NCHW-contiguous x
+        and ctx: each masked conv without its bias, then relu((conv + bias)
+        + ctx) in one in-place pass."""
+        h = x
+        for layer in (self.pix_in, *self._pix_layers):
+            h = masked_epilogue(layer(h, bias=False), layer.bias, ctx)
+        return self._heads(h)
+
+    def _heads(self, h):
         return likelihood_params(
             torch.sigmoid(self.p_x_mean_head(h)).to(torch.float32),
             lambda: p_logvar_activation(self.p_x_logvar_head(h)),
@@ -100,10 +162,11 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
     def decode(self, x, z1, z2):
         """Teacher-forced likelihood params of NHWC ``x``: causal in x by
         the masks, parallel over pixels."""
+        fused = self._fused_route(x, z1, z2)
         with span("evae.pixelcnn.context"):
             ctx = self._ctx(z1, z2)
         with span("evae.pixelcnn.stack"):
-            mean, logvar = masked_stack(self, x.permute(0, 3, 1, 2), ctx)
+            mean, logvar = masked_stack(self, x, ctx, fused)
         return mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)
 
     decode_x = decode
@@ -174,9 +237,9 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
         return canvas
 
 
-def masked_stack(model, x, ctx):
-    """``model``'s teacher-forced masked stack and heads over NCHW ``x``
-    with its context map ``ctx`` (``PixelHVAE._stack``), counted.
+def masked_stack(model, x, ctx, fused):
+    """``model``'s teacher-forced masked stack and heads over NHWC ``x``
+    with its context map ``ctx`` (``PixelHVAE._teacher_forced``), counted.
 
     ``masked_stack.rows`` sums the rows of every call. While a profiler
     runs, ``masked_stack.kept`` also keeps each call's count before it and
@@ -185,7 +248,7 @@ def masked_stack(model, x, ctx):
     if profiler_active():
         masked_stack.kept.append((masked_stack.rows, model.cfg))
     masked_stack.rows += x.shape[0]
-    return model._stack(x, ctx)
+    return model._teacher_forced(x, ctx, fused)
 
 
 masked_stack.rows = 0

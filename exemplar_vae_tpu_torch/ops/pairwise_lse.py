@@ -26,16 +26,13 @@ wrapper with grad mode off and recomputes the weights in its backward.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from exemplar_vae_tpu_torch.ops.nvcc import compile_library
 
 NEG_INF = -1e30
 PAD_IDX = -2          # exemplar-index sentinel: always masked
@@ -43,21 +40,9 @@ NO_LOO_IDX = -1       # row-index sentinel when there is no leave-one-out
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "pairwise_lse.cu"
-BUILD_DIR = _PKG / "_build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 _sm_count: dict = {}     # device index -> SM count, read once per device
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin/ on "
-                           "PATH or set CUDA_HOME")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def build(verbose: bool = False) -> float:
@@ -68,24 +53,7 @@ def build(verbose: bool = False) -> float:
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libpairwise_lse_{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-        os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, str(SOURCE)]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose or proc.returncode:
-            print(proc.stdout + proc.stderr, flush=True)
-        if proc.returncode:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}")
-        os.replace(tmp, so)
+    so = compile_library(SOURCE, "pairwise_lse", verbose)
     lib = ctypes.CDLL(str(so))
     lib.pairwise_lse_max_d.argtypes = []
     lib.pairwise_lse_max_d.restype = ctypes.c_int

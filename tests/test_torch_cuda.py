@@ -652,3 +652,81 @@ def test_config4_subpixel_decode_on_card_matches_transpose_route(
     for a, r in zip(got, want):
         assert a.shape == (500, 64, 64, 3)
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,hw,offset", [
+    (1, (28, 28), 0), (7, (28, 28), 0), (2000, (28, 28), 0), (5, (7, 9), 0),
+    (3, (28, 28), 1)])
+def test_masked_epilogue_kernel_matches_plain(dev, rows, hw, offset):
+    """The masked layers' fused epilogue on the card against its plain
+    version at (R, 64, H, W): bitwise, the same fp32 sums in the same
+    order. H*W = 63, and an h 4 bytes off a 16-byte boundary, take the
+    kernel's one-float loop; one launch a call."""
+    from exemplar_vae_tpu_torch.ops import masked_epilogue as me
+    shape = (rows, 64) + hw
+    g = torch.Generator(device=dev).manual_seed(rows)
+    flat = torch.randn(int(np.prod(shape)) + offset, generator=g, device=dev)
+    h = flat[offset:].view(shape)
+    bias = torch.randn((64,), generator=g, device=dev)
+    ctx = torch.randn(shape, generator=g, device=dev)
+    want = me.masked_epilogue_plain(h.clone(), bias, ctx)
+    before = me.masked_epilogue.launches
+    got = me.masked_epilogue(h, bias, ctx)
+    torch.cuda.synchronize()
+    assert got is h and me.masked_epilogue.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool((got == 0).any()) and bool((got > 0).any())
+
+
+@pytest.mark.cuda
+def test_masked_epilogue_refusals_on_card(dev):
+    """A channels-last h is refused before a launch; sizes that the kernel
+    refuses (planes not a multiple of the channels, a grid past 2^31 - 1
+    blocks) raise without a launch, and nothing is counted."""
+    from exemplar_vae_tpu_torch.ops import masked_epilogue as me
+    h = torch.randn((2, 64, 28, 28), device=dev)
+    bias, ctx = torch.randn((64,), device=dev), torch.randn_like(h)
+    want = h.clone()
+    before = me.masked_epilogue.launches
+    with pytest.raises(ValueError, match="NCHW"):
+        me.masked_epilogue(h.contiguous(memory_format=torch.channels_last),
+                           bias, ctx)
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        me._launch(h, bias, ctx, 127, 64, 784)
+    with pytest.raises(RuntimeError, match="cudaError 9$"):
+        me._launch(h, bias, ctx, 64 << 34, 64, 784)
+    torch.cuda.synchronize()
+    assert me.masked_epilogue.launches == before
+    assert torch.equal(h, want)
+
+
+@pytest.mark.cuda
+def test_pixelhvae_decode_routes_on_card(dev):
+    """The default masked stack (64 features, 4 'B' layers) over 2000 rows
+    on the card, TF32 off: the no-grad decode (NCHW, the fused epilogue, 5
+    launches) against the decode with gradients (each conv with its bias,
+    the context added, a ReLU, channels-last). Each row's log-likelihood
+    within the benchmark cell's nll_gap 5e-6 of the other's, relative;
+    whether the means are bitwise equal is printed."""
+    from exemplar_vae_tpu_torch.ops import masked_epilogue as me
+    from exemplar_vae_tpu_torch.ops.distributions import log_bernoulli
+    _, _, card = _pixel(dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.rand((2000, 28, 28, 1), generator=g, device=dev) < 0.3).float()
+    z1 = torch.randn((2000, 8), generator=g, device=dev)
+    z2 = torch.randn((2000, 8), generator=g, device=dev)
+    before = me.masked_epilogue.launches
+    with torch.no_grad():
+        fused = card.decode(x, z1, z2)[0]
+    assert me.masked_epilogue.launches == before + 5
+    parent = card.decode(x, z1, z2)[0].detach()
+    assert me.masked_epilogue.launches == before + 5
+    assert not torch.backends.cudnn.allow_tf32
+    ll = [log_bernoulli(x.reshape(2000, -1), m.reshape(2000, -1)).double()
+          for m in (fused, parent)]
+    gap = float(((ll[0] - ll[1]).abs() / ll[1].abs()).max())
+    print(f"decode routes: means bitwise {torch.equal(fused, parent)}, max "
+          f"abs diff {float((fused - parent).abs().max()):.3e}; "
+          f"log-likelihood gap {gap:.3e}")
+    assert gap <= 5e-6

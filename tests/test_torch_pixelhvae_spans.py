@@ -97,7 +97,8 @@ def test_the_rows_counter_grows_by_t_r_a_round():
 
 
 def _decode_without_spans(self, x, z1, z2):
-    mean, logvar = self._stack(x.permute(0, 3, 1, 2), self._ctx(z1, z2))
+    fused = self._fused_route(x, z1, z2)
+    mean, logvar = self._teacher_forced(x, self._ctx(z1, z2), fused)
     return mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)
 
 
