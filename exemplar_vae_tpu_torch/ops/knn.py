@@ -1,15 +1,15 @@
-"""kNN selection over the cached exemplar means, and the bank encode
-(counterpart of exemplar_vae_tpu/ops/knn.py).
+"""kNN selection over the cached exemplar means (counterpart of
+exemplar_vae_tpu/ops/knn.py).
 
 The approximate prior's cache holds exemplar latent means encoded by a
 snapshot of the encoder (refreshed once per epoch, no gradient); per batch
 point the K nearest cache rows by Euclidean distance are selected here, and
-the caller re-encodes them through the current encoder with gradients."""
+the caller re-encodes them through the current encoder with gradients
+(train/bank.py encodes the bank)."""
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 
 def pairwise_sq_dist(q, bank):
@@ -63,43 +63,3 @@ def dedup_valid_mask(flat_idx):
     dup[order] = dup_sorted
     return ~dup
 
-
-def encode_bank_with_grad(model, bank_images, *, chunk: int = 8192,
-                          remat: bool = True, pre_fn=None, draw_fn=None):
-    """Encode the whole exemplar bank -> (N, Dz) latent means, with
-    gradients to the encoder: the exact prior's per-step re-encode.
-
-    ``chunk <= 0`` (or >= N) is one encode; otherwise ``chunk`` rows at a
-    time, the last chunk ragged. ``remat`` recomputes each chunk's
-    activations in the backward (torch.utils.checkpoint) instead of keeping
-    them, so memory stays O(chunk). ``pre_fn(xc, u) -> xc`` preprocesses
-    each chunk right before it is encoded, inside the recomputed region, so
-    a raw uint8 bank stays raw on the device. Its noise ``u`` comes from
-    ``draw_fn(xc)``, called outside the recomputed region, so that the
-    recompute sees the same draw (it is kept for the backward: 4 bytes per
-    input element); without ``draw_fn``, u is None."""
-
-    def enc(xc, u):
-        if pre_fn is not None:
-            xc = pre_fn(xc, u)
-        return model.encode_top_mean(xc)
-
-    def run(xc):
-        u = draw_fn(xc) if draw_fn is not None else None
-        if remat:
-            return checkpoint(enc, xc, u, use_reentrant=False)
-        return enc(xc, u)
-
-    n = bank_images.shape[0]
-    if chunk is None or chunk <= 0 or chunk >= n:
-        return run(bank_images)
-    return torch.cat([run(bank_images[s:s + chunk])
-                      for s in range(0, n, chunk)], dim=0)
-
-
-@torch.no_grad()
-def encode_bank(model, bank_images, *, chunk: int = 8192, pre_fn=None):
-    """The eval-time encode: as encode_bank_with_grad, without gradients
-    (so without remat)."""
-    return encode_bank_with_grad(model, bank_images, chunk=chunk, remat=False,
-                                 pre_fn=pre_fn)

@@ -5,7 +5,8 @@ The bank images and the cache of their latent means are split by rows over
 the ranks, and so is the batch: each rank holds its own rows' query means.
 Four pieces:
 
-1. the cache refresh: each rank encodes its own shard, no collective;
+1. the cache refresh: each rank encodes its own shard, no collective
+   (train/steps.py::make_cache_refresh);
 2. the kNN select: the detached query means are gathered into the whole
    batch's (B, Dz) on every rank; each rank takes the k nearest rows of its
    cache shard (padding at +inf, padded to k candidates with +inf when the
@@ -38,21 +39,6 @@ from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.ops.knn import pairwise_sq_dist, smallest_k
 from exemplar_vae_tpu_torch.parallel.mesh import Mesh
 from exemplar_vae_tpu_torch.train.loss import approx_log_p_top
-from exemplar_vae_tpu_torch.train.steps import make_cache_refresh
-
-
-def make_sharded_cache_refresh(model, cfg: Config, mesh: Mesh):
-    """``refresh(shard_images_raw, generator=None) -> (n_loc, Dz)``: the
-    rank's cache shard, as make_cache_refresh encodes a whole bank; a
-    stochastic bank preprocessing draws from the rank's own generator."""
-    refresh = make_cache_refresh(model, cfg)
-
-    def sharded_refresh(shard_images_raw, generator=None):
-        if cfg.bank_stochastic_preprocess:
-            generator = mesh.shard_generator(generator)
-        return refresh(shard_images_raw, generator=generator)
-
-    return sharded_refresh
 
 
 def sharded_knn_select(q_means, cache_shard, valid_shard, k: int,

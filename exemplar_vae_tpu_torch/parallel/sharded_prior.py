@@ -6,11 +6,11 @@ The batch latents z (B_r, D) are gathered into the whole batch's (B, D)
 with the mesh's differentiable gather (parallel/mesh.py::AllGatherRows),
 the LOO indices with the plain one; the JAX package's shard_map takes z
 replicated too (P()), so XLA gathers the batch-sharded z into it. Each
-rank re-encodes its bank shard with gradients and runs the pairwise-LSE
-kernel (ops/pairwise_lse.py, through the prior's autograd Function) of the
-whole batch against it, with the LOO mask on the shard's global exemplar
-indices. The global mixture is the log-space combine of the per-shard
-partials:
+rank re-encodes its bank shard with gradients (train/bank.py, which also
+owns the shard's draws) and runs the pairwise-LSE kernel
+(ops/pairwise_lse.py, through the prior's autograd Function) of the whole
+batch against it, with the LOO mask on the shard's global exemplar indices.
+The global mixture is the log-space combine of the per-shard partials:
 
     m = all_reduce_MAX(lse_local.detach()),
     lse = m + log(all_reduce_SUM(exp(lse_local - m)))
@@ -27,9 +27,9 @@ import torch
 
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.ops.exemplar_prior import exemplar_log_prob
-from exemplar_vae_tpu_torch.ops.knn import encode_bank_with_grad
 from exemplar_vae_tpu_torch.parallel.mesh import Mesh
-from exemplar_vae_tpu_torch.train.loss import bank_draw_fn, bank_pre_fn
+from exemplar_vae_tpu_torch.train.bank import encode_bank_with_grad
+from exemplar_vae_tpu_torch.train.loss import prior_impl
 
 
 def make_sharded_exact_prior(cfg: Config, mesh: Mesh):
@@ -39,7 +39,7 @@ def make_sharded_exact_prior(cfg: Config, mesh: Mesh):
     a batch of ``batch_size`` (Mesh.batch_rows); ``bank`` holds this rank's
     shard: images (n_loc, ...), global data_idx and valid (n_loc,); padding
     rows have index -2 and valid False."""
-    impl = "pallas" if cfg.use_pallas_prior else "scan"
+    impl = prior_impl(cfg)
 
     def prior_fn(model, z, loo_idx, bank, log_denom, generator=None, *,
                  batch_size):
@@ -47,16 +47,8 @@ def make_sharded_exact_prior(cfg: Config, mesh: Mesh):
         z_all = mesh.all_gather_rows_grad(z, batch_size)
         loo_all = (None if loo_idx is None
                    else mesh.all_gather_rows(loo_idx, batch_size))
-        pre = draw = None
-        if bank.images.dtype == torch.uint8:
-            if cfg.bank_stochastic_preprocess:
-                generator = mesh.shard_generator(generator)
-            pre = bank_pre_fn(cfg, generator)
-            draw = bank_draw_fn(cfg, generator)
-        means = encode_bank_with_grad(model, bank.images,
-                                      chunk=cfg.exact_reencode_chunk,
-                                      remat=cfg.exact_remat, pre_fn=pre,
-                                      draw_fn=draw)
+        means = encode_bank_with_grad(model, bank.images, cfg, generator,
+                                      mesh)
         lse_local = exemplar_log_prob(
             z_all, means, model.get_prior_log_var(), log_denom=0.0,
             data_idx=loo_all, exemplar_idx=bank.data_idx, valid=bank.valid,

@@ -29,9 +29,9 @@ from exemplar_vae_tpu_torch.models.base import (reconstruction_log_lik,
                                                 reparameterize)
 from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
-from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
-from exemplar_vae_tpu_torch.train.loss import Bank, elbo_terms, eval_log_p_top
+from exemplar_vae_tpu_torch.train.bank import Bank, encode_eval_bank
+from exemplar_vae_tpu_torch.train.loss import elbo_terms, eval_log_p_top
 from exemplar_vae_tpu_torch.train.profiling import span
 
 
@@ -40,17 +40,13 @@ def model_device(model) -> torch.device:
 
 
 def make_eval_bank_fn(model, cfg: Config, mesh=None):
-    """Encode the full exemplar bank once for evaluation (no gradient). On
-    a ``mesh`` (parallel/mesh.py) ``bank`` is this rank's shard: each rank
-    encodes its rows, then the means, indices and valid mask are gathered
-    to every rank, so validation and the IWAE run replicated over the whole
-    padded bank (padding masked by ``valid``, the denominator n_effective),
-    as XLA runs them over the JAX package's sharded arrays."""
-
-    def pre(xc, u=None):
-        return preprocess_batch(xc, input_type=cfg.input_type,
-                                dynamic_binarization=cfg.dynamic_binarization,
-                                train=False)
+    """Encode the full exemplar bank once for evaluation (no gradient;
+    train/bank.py::encode_eval_bank). On a ``mesh`` (parallel/mesh.py)
+    ``bank`` is this rank's shard: each rank encodes its rows, then the
+    means, indices and valid mask are gathered to every rank, so validation
+    and the IWAE run replicated over the whole padded bank (padding masked
+    by ``valid``, the denominator n_effective), as XLA runs them over the
+    JAX package's sharded arrays."""
 
     @torch.no_grad()
     def build_bank(bank: Bank) -> Bank:
@@ -61,14 +57,7 @@ def make_eval_bank_fn(model, cfg: Config, mesh=None):
 
     def _build(bank: Bank) -> Bank:
         dev = model_device(model)
-        imgs = as_tensor(bank.images, dev)
-        if imgs.dtype == torch.uint8:
-            # raw banks stay raw on the device; each chunk is preprocessed
-            means = encode_bank(model, imgs, chunk=cfg.exact_reencode_chunk,
-                                pre_fn=pre)
-        else:
-            means = encode_bank(model, pre(imgs),
-                                chunk=cfg.exact_reencode_chunk)
+        means = encode_eval_bank(model, as_tensor(bank.images, dev), cfg)
         data_idx = as_tensor(bank.data_idx, dev, torch.int32)
         valid = as_tensor(bank.valid, dev, torch.bool)
         if mesh is not None:

@@ -4,12 +4,13 @@
 
 Exemplar-prior support, by mode:
   train + exact   - re-encode the whole exemplar bank through the current
-                    encoder with gradients (chunked, optionally recomputed
-                    in the backward), LOO mask, denominator N-1
+                    encoder with gradients, LOO mask, denominator N-1
   train + approx  - kNN over the stale cache means, then a gather and a
                     fresh re-encode of each point's K neighbours with
                     gradients (per-row support, or the batch union)
   eval            - precomputed full-bank means, no LOO, denominator N
+
+How the bank is stored, preprocessed and encoded: train/bank.py.
 
 Noise: the reparameterization draw is injected (``eps``) or drawn from
 ``generator``; nothing here reads a global random state.
@@ -18,8 +19,7 @@ Noise: the reparameterization draw is injected (``eps``) or drawn from
 from __future__ import annotations
 
 import collections
-import math
-from typing import Any, NamedTuple, Optional
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,62 +27,17 @@ from torch.utils.checkpoint import checkpoint
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models.base import reconstruction_log_lik
 from exemplar_vae_tpu_torch.ops.distributions import log_normal_diag
-from exemplar_vae_tpu_torch.ops.knn import (dedup_valid_mask,
-                                            encode_bank_with_grad, knn_indices)
-from exemplar_vae_tpu_torch.ops.preprocess import preprocess_batch
+from exemplar_vae_tpu_torch.ops.knn import dedup_valid_mask, knn_indices
+from exemplar_vae_tpu_torch.train.bank import (Bank, bank_log_denom,
+                                               encode_bank_with_grad,
+                                               rows_input)
 from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
 
 
-class Bank(NamedTuple):
-    """Exemplar-bank inputs.
-
-    images: preprocessed exemplar inputs (N, H, W, C) - None once encoded.
-    data_idx: (N,) int32 global dataset indices (LOO addressing).
-    valid: (N,) bool - False rows are padding.
-    cache_means: (N, Dz) - the stale cache (approximate training) or the
-      precomputed exact means (eval); None in exact training.
-    n_effective: int - true exemplar count N (mixture denominator).
-    """
-    images: Any
-    data_idx: Any
-    valid: Any
-    cache_means: Any
-    n_effective: int
-
-
-def bank_pre_fn(cfg: Config, generator=None):
-    """Per-chunk preprocessing ``pre(xc, u=None)`` of a raw (uint8) bank;
-    float banks are preprocessed once per epoch instead. Stochastic only
-    under ``cfg.bank_stochastic_preprocess``: by default the bank is
-    preprocessed deterministically everywhere, and only the training batch
-    gets fresh draws. ``u`` injects the uniforms, else they come from
-    ``generator``."""
-
-    def pre(xc, u=None):
-        return preprocess_batch(xc, input_type=cfg.input_type,
-                                dynamic_binarization=cfg.dynamic_binarization,
-                                train=cfg.bank_stochastic_preprocess,
-                                generator=generator, u=u)
-
-    return pre
-
-
-def bank_draw_fn(cfg: Config, generator=None):
-    """``draw(xc) -> u``: the uniforms that bank_pre_fn's stochastic
-    preprocessing of the raw chunk ``xc`` consumes; None when the bank is
-    preprocessed deterministically."""
-    if not cfg.bank_stochastic_preprocess:
-        return None
-    return lambda xc: torch.rand(xc.shape, generator=generator,
-                                 device=xc.device)
-
-
-def bank_log_denom(cfg: Config, bank: Bank, train: bool) -> float:
-    """log(N) at eval; log(N-1) when the LOO mask removes one component."""
-    n = float(bank.n_effective)
-    if train and cfg.loo_mask_enabled:
-        return math.log(n - 1.0)
-    return math.log(n)
+def prior_impl(cfg: Config) -> str:
+    """The exemplar prior's LSE route: the pairwise-LSE kernel when
+    cfg.use_pallas_prior, else the blockwise scan."""
+    return "pallas" if cfg.use_pallas_prior else "scan"
 
 
 def _local_select(q_means, cache_means, valid, k):
@@ -105,9 +60,8 @@ def approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
     prior passes their collective forms (parallel/sharded_knn.py), with
     ``out`` and ``loo_idx`` holding the rows ``batch_rows`` = (lo, hi) of
     the selection's B: per-row support then re-encodes only those rows'
-    neighbours, the batch union every selected row. ``bank_u`` injects the
-    uniforms of a stochastic raw-bank preprocessing (the re-encoded rows'),
-    else they come from ``generator``.
+    neighbours, the batch union every selected row. ``bank_u``: the
+    re-encoded rows' uniforms (train/bank.py::rows_input).
 
     ``approx_log_p_top.rows`` counts the bank rows re-encoded with
     gradients (B*K a call, a rank's rows of it on the mesh's per-row
@@ -129,8 +83,7 @@ def approx_log_p_top(model, out, cfg: Config, bank: Bank, loo_idx, log_denom,
             k = idx.shape[1]
             flat, ex_idx = flat[lo * k:hi * k], ex_idx[lo:hi]
             chosen = idx[lo:hi]
-        if flat.dtype == torch.uint8:
-            flat = bank_pre_fn(cfg, generator)(flat, u=bank_u)
+        flat = rows_input(flat, cfg, generator, bank_u)
         if cfg.approx_remat:
             means = checkpoint(model.encode_top_mean, flat,
                                use_reentrant=False)
@@ -181,36 +134,26 @@ def exemplar_prior_log_prob(model, out, cfg: Config, bank: Bank, data_idx,
     if sharded_exact_fn is not None:
         return sharded_exact_fn(model, out.z_top, loo_idx, bank, log_denom,
                                 generator)
-    pre = draw = None
-    if bank.images.dtype == torch.uint8:
-        pre = bank_pre_fn(cfg, generator)
-        draw = bank_draw_fn(cfg, generator)
     with span("evae.prior.reencode"):
-        means = encode_bank_with_grad(model, bank.images,
-                                      chunk=cfg.exact_reencode_chunk,
-                                      remat=cfg.exact_remat, pre_fn=pre,
-                                      draw_fn=draw)
+        means = encode_bank_with_grad(model, bank.images, cfg, generator)
     with span("evae.prior.lse"):
         return model.log_p_z_top(
             out.z_top, bank_means=means, data_idx=loo_idx,
             exemplar_idx=bank.data_idx, valid=bank.valid,
-            log_denom=log_denom,
-            impl="pallas" if cfg.use_pallas_prior else "scan",
+            log_denom=log_denom, impl=prior_impl(cfg),
             block_n=cfg.prior_block_n)
 
 
 def eval_log_p_top(model, z, cfg: Config, bank: Optional[Bank]):
-    """log p(z_top) at eval: full precomputed bank, no LOO, denominator N.
-    The exemplar prior runs the pairwise-LSE kernel when
-    cfg.use_pallas_prior, else the blockwise scan."""
+    """log p(z_top) at eval: full precomputed bank, no LOO, denominator N,
+    by prior_impl's route."""
     if cfg.prior != "exemplar_prior":
         return model.log_p_z_top(z)
-    impl = "pallas" if cfg.use_pallas_prior else "scan"
     with span("evae.prior.lse"):
         return model.log_p_z_top(
             z, bank_means=bank.cache_means, data_idx=None,
             exemplar_idx=bank.data_idx, valid=bank.valid,
-            log_denom=bank_log_denom(cfg, bank, False), impl=impl,
+            log_denom=bank_log_denom(cfg, bank, False), impl=prior_impl(cfg),
             block_n=cfg.prior_block_n)
 
 

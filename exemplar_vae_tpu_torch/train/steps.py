@@ -5,8 +5,9 @@ exemplar_vae_tpu/train/steps.py).
   loss, runs the backward and applies the optimizer, with no host read.
 * The epoch is a loop of steps over a permutation that lives on the device;
   each step gathers its B rows from the device-resident ``train_x``. The
-  bank is preprocessed once per epoch. The step metrics stay on the device
-  until the caller reads the epoch means (one host read per epoch).
+  bank is prepared once per epoch (train/bank.py). The step metrics stay on
+  the device until the caller reads the epoch means (one host read per
+  epoch).
 * Noise comes from an explicit ``torch.Generator``, or is injected per step
   (the batch's uniforms ``u`` and the reparameterization ``eps``) so that
   tests can replay the JAX package's draws. The step draws the whole
@@ -34,10 +35,15 @@ import torch
 from torch import nn
 
 from exemplar_vae_tpu_torch.config import Config
-from exemplar_vae_tpu_torch.ops.knn import encode_bank
 from exemplar_vae_tpu_torch.ops.preprocess import (preprocess_batch,
                                                    train_draws_uniforms)
-from exemplar_vae_tpu_torch.train.loss import Bank, bank_pre_fn, batch_loss
+from exemplar_vae_tpu_torch.parallel.sharded_knn import \
+    make_sharded_approx_prior
+from exemplar_vae_tpu_torch.parallel.sharded_prior import \
+    make_sharded_exact_prior
+from exemplar_vae_tpu_torch.train.bank import (draw_rows_u, encode_bank,
+                                               epoch_bank)
+from exemplar_vae_tpu_torch.train.loss import batch_loss
 from exemplar_vae_tpu_torch.train.optimizer import Adam, make_optimizer
 from exemplar_vae_tpu_torch.train.profiling import span
 
@@ -55,34 +61,14 @@ def init_train_state(model, cfg: Config) -> TrainState:
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 
-def _preprocess_bank(bank: Bank, cfg: Config, generator=None,
-                     mesh=None) -> Bank:
-    """The epoch's bank: deterministic preprocessing unless
-    cfg.bank_stochastic_preprocess (on a mesh each shard then draws from
-    its rank's own generator), stored in bf16 when the compute is bf16 (the
-    encoder casts its input to bf16 anyway); a raw uint8 bank stays raw and
-    is preprocessed per encode chunk."""
-    if bank is None or bank.images is None or bank.images.dtype == torch.uint8:
-        return bank
-    if mesh is not None and cfg.bank_stochastic_preprocess:
-        generator = mesh.shard_generator(generator)
-    imgs = preprocess_batch(bank.images, input_type=cfg.input_type,
-                            dynamic_binarization=cfg.dynamic_binarization,
-                            train=cfg.bank_stochastic_preprocess,
-                            generator=generator)
-    if cfg.compute_dtype == "bfloat16":
-        imgs = imgs.to(torch.bfloat16)
-    return bank._replace(images=imgs)
-
-
 class StepNoise(NamedTuple):
     """What one train step draws before its forward, for the whole batch:
     ``u`` the batch's preprocessing uniforms (the shape of x, or None when
     its preprocessing draws none); ``eps`` the reparameterization noise,
     (B, z1) for the VAE, the pair (eps2 (B, z2), eps1 (B, z1)) for the
     two-level models; ``bank_u`` the uniforms of the approximate prior's
-    stochastic raw-bank preprocessing, (B * K, ...) in the selection's
-    row-major order, or None."""
+    gathered raw bank rows (train/bank.py::draw_rows_u), (B * K, ...) in
+    the selection's row-major order, or None."""
     u: Optional[torch.Tensor]
     eps: Any
     bank_u: Optional[torch.Tensor]
@@ -105,10 +91,10 @@ def draw_step_noise(model, cfg: Config, x_raw, bank, generator=None, *,
                     mesh=None):
     """(StepNoise, bank): the whole batch's draws of one train step from
     ``generator``, in the order one process has always drawn them (the
-    batch's uniforms; the bank's stochastic preprocessing when
-    ``preprocess_bank``, which returns the preprocessed bank; the
-    reparameterization noise, model.draw_eps's; the approximate
-    prior's raw-bank uniforms). ``u`` and ``eps`` are kept when injected.
+    batch's uniforms; the epoch bank's draws when ``preprocess_bank``,
+    which returns train/bank.py::epoch_bank's bank; the reparameterization
+    noise, model.draw_eps's; the approximate prior's gathered rows'
+    uniforms). ``u`` and ``eps`` are kept when injected.
     One process and every rank of the data mesh call this alike, so the
     ranks' generators stay in step and each row sees one process's
     numbers."""
@@ -119,17 +105,12 @@ def draw_step_noise(model, cfg: Config, x_raw, bank, generator=None, *,
         u = torch.rand(x_raw.shape, generator=generator, device=dev)
     exemplar = cfg.prior == "exemplar_prior"
     if exemplar and preprocess_bank:
-        bank = _preprocess_bank(bank, cfg, generator, mesh)
+        bank = epoch_bank(bank, cfg, generator, mesh)
     if eps is None:
         eps = model.draw_eps(b, generator, dev)
     bank_u = None
-    if (exemplar and cfg.approximate_prior and cfg.bank_stochastic_preprocess
-            and bank.images.dtype == torch.uint8 and train_draws_uniforms(
-                torch.uint8, input_type=cfg.input_type,
-                dynamic_binarization=cfg.dynamic_binarization)):
-        bank_u = torch.rand((b * cfg.approximate_k,)
-                            + tuple(bank.images.shape[1:]),
-                            generator=generator, device=bank.images.device)
+    if exemplar and cfg.approximate_prior:
+        bank_u = draw_rows_u(cfg, bank, b * cfg.approximate_k, generator)
     return StepNoise(u, eps, bank_u), bank
 
 
@@ -154,14 +135,9 @@ def make_train_step(cfg: Config, *, bank_preprocessed: bool = False,
     B), which add up over the ranks to the means."""
     sharded = {}
     if mesh is not None and cfg.prior == "exemplar_prior":
-        # imported here: parallel.sharded_knn imports this module
         if cfg.approximate_prior:
-            from exemplar_vae_tpu_torch.parallel.sharded_knn import \
-                make_sharded_approx_prior
             sharded["sharded_approx_fn"] = make_sharded_approx_prior(cfg, mesh)
         else:
-            from exemplar_vae_tpu_torch.parallel.sharded_prior import \
-                make_sharded_exact_prior
             sharded["sharded_exact_fn"] = make_sharded_exact_prior(cfg, mesh)
     k_rows = None if cfg.approximate_support == "batch_union" \
         else cfg.approximate_k
@@ -227,7 +203,7 @@ def make_epoch_fn(cfg: Config, mesh=None):
         steps, batch = perm.shape
         if cfg.prior == "exemplar_prior":
             with span("evae.epoch.bank"):
-                bank = _preprocess_bank(bank, cfg, generator, mesh)
+                bank = epoch_bank(bank, cfg, generator, mesh)
         x2d = train_x.reshape(train_x.shape[0], -1)
         auxs = []
         for i in range(steps):
@@ -251,26 +227,14 @@ def make_epoch_fn(cfg: Config, mesh=None):
     return epoch_fn
 
 
-def make_cache_refresh(model, cfg: Config):
+def make_cache_refresh(model, cfg: Config, mesh=None):
     """The approximate prior's per-epoch cache refresh: ``refresh(
     bank_images_raw, generator=None) -> (N, Dz)`` encodes the whole bank
-    with the current params and no gradient, in chunks of
-    cfg.exact_reencode_chunk (0: one encode), so the cache lags the encoder
-    by up to one epoch. The bank is preprocessed as the train step's bank is
-    (deterministically unless cfg.bank_stochastic_preprocess; a raw uint8
-    bank per chunk)."""
+    (on a ``mesh`` the rank's shard, no collective) with the current params
+    and no gradient (train/bank.py::encode_bank), so the cache lags the
+    encoder by up to one epoch."""
 
-    @torch.no_grad()
     def refresh(bank_images_raw, generator=None):
-        with span("evae.cache_refresh"):
-            if bank_images_raw.dtype == torch.uint8:
-                return encode_bank(model, bank_images_raw,
-                                   chunk=cfg.exact_reencode_chunk,
-                                   pre_fn=bank_pre_fn(cfg, generator))
-            imgs = preprocess_batch(
-                bank_images_raw, input_type=cfg.input_type,
-                dynamic_binarization=cfg.dynamic_binarization,
-                train=cfg.bank_stochastic_preprocess, generator=generator)
-            return encode_bank(model, imgs, chunk=cfg.exact_reencode_chunk)
+        return encode_bank(model, bank_images_raw, cfg, generator, mesh)
 
     return refresh

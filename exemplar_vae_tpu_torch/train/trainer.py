@@ -53,8 +53,6 @@ from exemplar_vae_tpu_torch.data.loaders import load_dataset
 from exemplar_vae_tpu_torch.device import resolve_device
 from exemplar_vae_tpu_torch.models import create_model
 from exemplar_vae_tpu_torch.parallel.mesh import create_mesh, pad_to_shards
-from exemplar_vae_tpu_torch.parallel.sharded_knn import \
-    make_sharded_cache_refresh
 from exemplar_vae_tpu_torch.train import checkpoints, plots, sampling
 from exemplar_vae_tpu_torch.train.evaluation import (make_elbo_eval_fn,
                                                      make_eval_bank_fn,
@@ -145,9 +143,8 @@ class Experiment:
             if cfg.approximate_prior:
                 cache = torch.zeros((images.shape[0], self.model.top_dim),
                                     dtype=torch.float32, device=dev)
-                self.cache_refresh = (
-                    make_sharded_cache_refresh(self.model, cfg, self.mesh)
-                    if self.mesh else make_cache_refresh(self.model, cfg))
+                self.cache_refresh = make_cache_refresh(self.model, cfg,
+                                                        self.mesh)
             self.bank = Bank(images=images, data_idx=idxs, valid=valid,
                              cache_means=cache, n_effective=n_ex)
         if cfg.prior == "vampprior" and cfg.use_training_data_init:

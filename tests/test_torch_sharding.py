@@ -41,8 +41,9 @@ from exemplar_vae_tpu.train import loss as jloss
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.models import create_model
 from exemplar_vae_tpu_torch.ops.exemplar_prior import exemplar_log_prob
-from exemplar_vae_tpu_torch.ops.knn import encode_bank_with_grad, knn_indices
+from exemplar_vae_tpu_torch.ops.knn import knn_indices
 from exemplar_vae_tpu_torch.parallel.mesh import pad_to_shards, row_range
+from exemplar_vae_tpu_torch.train.bank import encode_bank_with_grad
 from exemplar_vae_tpu_torch.train.trainer import Experiment
 from exemplar_vae_tpu_torch.weights import params_from_flax
 
@@ -200,8 +201,7 @@ def _one_rank_prior(o):
     model = create_model(cfg, device="cpu")
     model.load_state_dict(inp["params"])
     z = inp["z"].clone().requires_grad_(True)
-    means = encode_bank_with_grad(model, inp["images"],
-                                  chunk=cfg.exact_reencode_chunk, remat=True)
+    means = encode_bank_with_grad(model, inp["images"], cfg)
     prior = exemplar_log_prob(
         z, means, model.get_prior_log_var(), log_denom=inp["log_denom"],
         data_idx=inp["loo"], exemplar_idx=inp["data_idx"],

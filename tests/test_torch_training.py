@@ -45,6 +45,7 @@ from exemplar_vae_tpu_torch.models import create_model
 from exemplar_vae_tpu_torch.train import evaluation as tev
 from exemplar_vae_tpu_torch.train import optimizer as topt
 from exemplar_vae_tpu_torch.train import steps as tsteps
+from exemplar_vae_tpu_torch.train.bank import epoch_bank
 from exemplar_vae_tpu_torch.train.loss import Bank
 from exemplar_vae_tpu_torch.weights import params_from_flax
 
@@ -430,13 +431,13 @@ def test_bank_preprocessed_in_bf16_when_compute_is_bf16(data):
     _, tb = _banks(train_x)
     for dtype, want in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
-        out = tsteps._preprocess_bank(tb, Config(compute_dtype=dtype))
+        out = epoch_bank(tb, Config(compute_dtype=dtype))
         assert out.images.dtype == want
         # deterministic by default: the gray levels, not a Bernoulli draw
         torch.testing.assert_close(out.images.float(),
                                    tb.images.to(want).float())
     raw = tb._replace(images=(tb.images * 255).to(torch.uint8))
-    assert tsteps._preprocess_bank(raw, Config()).images is raw.images
+    assert epoch_bank(raw, Config()).images is raw.images
 
 
 # ---------------------------------------------------------------------------
