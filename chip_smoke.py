@@ -24,7 +24,18 @@ Phases; any failure exits non-zero before the result lines:
    (50 000 rows of (64, 28, 28), fp32), against its plain version (bias
    add, context add, ReLU) on a copy of the same inputs: bitwise; kernel
    and plain ms by CUDA events and the bound (h and ctx read and h written
-   once over HBM);
+   once over HBM). [gate]: the gated convs' epilogue
+   (ops/gated_epilogue.py) at Config 4's three decoder layers, one
+   convhvae-knn-score round each (5 000 rows: (512, 16, 16) and (256, 32,
+   32) with 2x2 phases, (64, 64, 64) without), and at Config 3's, one
+   round of [config3]'s IWAE request (50 000 rows: (512, 7, 7) and (256,
+   14, 14) with 2x2 phases, which take the scalar kernel, (64, 28, 28)
+   without) and its encoder's last layer over the eval bank (50 000 rows
+   of (128, 7, 7), the scalar kernel without phases), against its plain
+   version (depth-to-space bias add, sigmoid, product) on the same input:
+   bitwise; kernel and plain ms by CUDA events and the bound (the 2F
+   channels read and the F gated ones written once over HBM), each Config
+   4 call within 1.25x it; the launches counted over the phase;
 4. [ingest]: the native parsers (data/native_ingest.py, built with g++)
    against numpy on a 60 000 x 28 x 28 IDX file and a 10 000-row .amat
    file: equal arrays, the build's and both parsers' times (host only);
@@ -93,7 +104,10 @@ Phases; any failure exits non-zero before the result lines:
    and through the scan on the same noise, within rtol 1e-5, its time and
    peak memory, and its device time by group under the profiler; (f) the
    CLI trains one epoch of it, finite metrics, and the
-   exact kernel launch count computed from its config;
+   exact kernel launch count computed from its config. The gated epilogue's
+   launches, counted per path: 4 in (e)'s fp32 eval-bank encode (one
+   chunk), 3 a round + 4 + 4 in (e)'s IWAE request, none in the bf16 cache
+   refresh, training, validation and CLI epoch;
 9. [pixel], the PixelHVAE at the JAX package's default width (hidden 300,
    z1 = z2 = 40, PixelCNN of a 5x5 'A' and four 3x3 'B' masked convs of 64
    features) on the 50 000-image synthetic binarized stand-in, the exact
@@ -153,7 +167,10 @@ Phases; any failure exits non-zero before the result lines:
    request at S = 5000, MB = 500, chunked by the autotune into one chunk of
    10 points (B = 5000 rows a round, one launch per round), through the
    kernel and through the scan on the same noise within rtol 1e-5, its
-   time, peak memory and device time by group;
+   time, peak memory and device time by group. The gated epilogue's
+   launches, counted per path: 38 in (e)'s request (3 decoder layers a
+   round, 4 + 4 encoder layers once), 4 a chunk of (e)'s fp32 eval-bank
+   encode, none in the bf16 cache refresh, training and validation;
 12. [sharded], data-parallel training on the mesh: torchrun starts
    SHARD_W = 2 child processes of this script (``--sharded-rank``), gloo
    ranks sharing the card, each training on TRAIN_B / SHARD_W = 50 rows of
@@ -265,6 +282,22 @@ PIX_U_MARGIN = 1e-5
 # the masked epilogue's serving shape: one masked layer's output a round of
 # pixelhvae-exact-score (100 points x MB = 500 rows, 64 features, 28 x 28)
 EPI_SHAPE = (50_000, 64, 28, 28)
+# the gated epilogue's shapes, (config, raw conv output, phases): Config
+# 4's decoder layers t64k3s2, t32k3s2, c32k3s1 a round of
+# convhvae-knn-score (10 points x MB = 500 rows), each call's time within
+# GATE_SLACK of its HBM bound; Config 3's a round of [config3]'s IWAE
+# request (100 points x MB = 500 rows; w = 7 and 14 take the scalar kernel)
+# and its encoder's 7x7 output over the eval bank (h*w = 49: the scalar
+# kernel without phases)
+GATE_SHAPES = (("config4", (5_000, 512, 16, 16), (2, 2)),
+               ("config4", (5_000, 256, 32, 32), (2, 2)),
+               ("config4", (5_000, 64, 64, 64), (1, 1)),
+               ("config3", (50_000, 512, 7, 7), (2, 2)),
+               ("config3", (50_000, 256, 14, 14), (2, 2)),
+               ("config3", (50_000, 64, 28, 28), (1, 1)),
+               ("config3", (N_BANK, 128, 7, 7), (1, 1)))
+GATE_SLACK = 1.25
+GATE_REPS, GATE_WARM = 50, 2
 # [ingest]: an MNIST-sized IDX file and a static-MNIST-sized .amat split
 INGEST_IDX, INGEST_AMAT = (60_000, 28, 28), (10_000, 784)
 CHILD_TIMEOUT_S = 600
@@ -515,6 +548,55 @@ def epilogue_phase(me):
     torch.cuda.empty_cache()
     return dict(shape=list(EPI_SHAPE), max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def gate_phase(ge):
+    """The gated convs' epilogue at GATE_SHAPES against its plain version on
+    the same input (bitwise: the same fp32 chain in the same order), its ms
+    and the plain version's by CUDA events, and its bound: y read and the
+    output (half y's size) written once over HBM. Returns the rows and the
+    launches counted over the phase."""
+    g = torch.Generator("cuda").manual_seed(12)
+    rows = []
+    ge.gated_epilogue.launches = 0
+    for cfg_name, shape, phases in GATE_SHAPES:
+        f = shape[1] // (2 * phases[0] * phases[1])
+        y = torch.randn(shape, generator=g, device="cuda")
+        hb = torch.randn((f,), generator=g, device="cuda")
+        gb = torch.randn((f,), generator=g, device="cuda")
+        want = ge.gated_epilogue_plain(y, hb, gb, *phases)
+        got = ge.gated_epilogue(y, hb, gb, phases)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        check(torch.equal(got, want), f"gated_epilogue vs plain at {shape} "
+              f"{phases}: not bitwise equal, max abs diff {max_abs:.3e}")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: ge.gated_epilogue(y, hb, gb, phases), GATE_REPS,
+                     warmup=GATE_WARM)
+        plain_ms = cuda_ms(lambda: ge.gated_epilogue_plain(y, hb, gb,
+                                                           *phases), 10,
+                           warmup=1)
+        nbytes = 3 * y.numel() // 2 * y.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[gate] gated_epilogue {cfg_name} {shape} phases {phases} fp32: "
+            f"bitwise equal to plain; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} (HBM bytes: {nbytes / 1e9:.2f} GB; "
+            f"{100 * bound_ms / ms:.1f}% of it)")
+        if cfg_name == "config4":
+            check(ms <= GATE_SLACK * bound_ms, f"gated_epilogue at {shape}: "
+                  f"{ms:.4f} ms, over {GATE_SLACK} x its {bound_ms:.4f}-ms "
+                  f"bound")
+        rows.append(dict(config=cfg_name, shape=list(shape),
+                         phases=list(phases), max_abs_err=max_abs, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms))
+        del y
+        torch.cuda.empty_cache()
+    launches = ge.gated_epilogue.launches
+    want = len(GATE_SHAPES) * (1 + GATE_WARM + GATE_REPS)
+    check(launches == want, f"[gate] counted {launches} gated_epilogue "
+          f"launches, not {want}")
+    return rows, launches
 
 
 def serving_phase(pl):
@@ -960,11 +1042,33 @@ def trajectory_phase(pl, snap_dir):
     return {f"trajectory_{k}": v for k, v in kcounts.items()}
 
 
+def _chunks(n, cfg):
+    """The bank encode's chunks of n rows (train/bank.py::_encode)."""
+    chunk = cfg.exact_reencode_chunk
+    return 1 if chunk <= 0 or chunk >= n else -(-n // chunk)
+
+
+def check_gate_counts(gate, *, eval_bank, iwae):
+    """The gated epilogue's launches per path of a ConvHVAE phase, read
+    from its counter: ``eval_bank`` in the fp32 eval-bank encode (4 encoder
+    layers a chunk), ``iwae`` in the fp32 IWAE request (3 decoder layers a
+    round, 4 + 4 encoder layers once), none on a bf16 or gradient path."""
+    for path, n in gate.items():
+        want = (eval_bank if path.endswith("_eval_bank") else
+                iwae if path.endswith("_iwae") else 0)
+        check(n == want, f"{path} launched the gated epilogue {n} times, "
+              f"not {want}")
+    log(f"[gate-counts] gated_epilogue launches per path: {gate}")
+
+
 def config3_phase(pl, snap_dir):
+    """BASELINE Config 3 (docstring item 8): the pairwise_lse launches per
+    path, and the gated epilogue's (gate_counts)."""
     from exemplar_vae_tpu_torch.config import (Config, config_from_args,
                                                reference_arg_parser)
     from exemplar_vae_tpu_torch.main import main as cli_main
     from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
     from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
                                                          make_iwae_fn)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
@@ -998,9 +1102,11 @@ def config3_phase(pl, snap_dir):
     refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
                                         generator=exp.gen)
     torch.cuda.reset_peak_memory_stats()
+    ge.gated_epilogue.launches = 0
     refresh_ms = cuda_ms(refresh, 3, warmup=1)
     refresh_gb = torch.cuda.max_memory_allocated() / 1e9
     exp.bank = exp.bank._replace(cache_means=refresh())
+    gate = {"config3_cache_refresh": ge.gated_epilogue.launches}
     check(bool(torch.isfinite(exp.bank.cache_means).all()),
           "non-finite cache means")
 
@@ -1013,12 +1119,13 @@ def config3_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the train part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     exp.state, metrics = run(perm)
     loss = float(metrics["loss"])           # host read: ends the timed call
     dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
+    gate["config3_train"] = ge.gated_epilogue.launches
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"Config 3 training loss {loss}")
@@ -1059,11 +1166,12 @@ def config3_phase(pl, snap_dir):
         f"of device time per call")
 
     # (d) the validation ELBO (eval bank encode + 100 batches)
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     val = exp.validate()
     val_s = time.perf_counter() - t0
     val_launches = pl.pairwise_lse.launches
+    gate["config3_validation"] = ge.gated_epilogue.launches
     want_val = -(-C3_VAL // cfg.test_batch_size)
     check(all(math.isfinite(v) for v in val), f"Config 3 validation {val}")
     check(val_launches == want_val, f"validation launched the kernel "
@@ -1077,7 +1185,9 @@ def config3_phase(pl, snap_dir):
     m32 = create_model(c32, device="cuda")
     m32.load_state_dict(exp.model.state_dict())
     m32.eval()
+    ge.gated_epilogue.launches = 0
     eb = make_eval_bank_fn(m32, c32)(exp.bank)
+    gate["config3_eval_bank"] = ge.gated_epilogue.launches
     rounds, r = -(-c32.S // c32.MB), c32.MB
     g = torch.Generator("cuda").manual_seed(7)
     eps = (torch.randn((rounds, C3_T * r, D), generator=g, device="cuda"),
@@ -1087,11 +1197,12 @@ def config3_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the IWAE part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     nll_k = iwae_k(exp.test_x, eb, rounds, r, eps=eps).cpu()
     iwae_ms = (time.perf_counter() - t0) * 1e3
     iwae_launches = pl.pairwise_lse.launches
+    gate["config3_iwae"] = ge.gated_epilogue.launches
     # ---- end ----
     iwae_gb = torch.cuda.max_memory_allocated() / 1e9
     nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False)).chunk_nll(
@@ -1126,13 +1237,14 @@ def config3_phase(pl, snap_dir):
             "--epochs", "1", "--S", "8", "--MB", "8", "--compute_dtype",
             "bfloat16", "--snapshot_dir", str(cli_dir)]
     out = io.StringIO()
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         results = cli_main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     cli_launches = pl.pairwise_lse.launches
+    gate["config3_cli_epoch"] = ge.gated_epilogue.launches
     for line in out.getvalue().splitlines():
         log(f"[config3-cli] | {line}")
     # the approximate train step launches none; one per validation batch
@@ -1161,13 +1273,20 @@ def config3_phase(pl, snap_dir):
         f"{records[0]['loss']:.4f}, val_loss {records[0]['val_loss']:.4f}, "
         f"test_nll {results['test_nll']:.4f}; pairwise_lse launches "
         f"{cli_launches}")
-    return {"config3_train": train_launches, "config3_validation": val_launches,
-            "config3_iwae": iwae_launches, "config3_cli_epoch": cli_launches}
+    # fp32 only: the bf16 paths (refresh, training, validation, CLI) none
+    check_gate_counts(gate, eval_bank=4 * _chunks(N_BANK, c32),
+                      iwae=3 * rounds + 8)
+    return ({"config3_train": train_launches,
+             "config3_validation": val_launches, "config3_iwae": iwae_launches,
+             "config3_cli_epoch": cli_launches}, gate)
 
 
 def config4_phase(pl, snap_dir):
+    """BASELINE Config 4 (docstring item 11): the pairwise_lse launches per
+    path, and the gated epilogue's (gate_counts)."""
     from exemplar_vae_tpu_torch.config import Config
     from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
     from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
                                                          make_iwae_fn)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
@@ -1205,9 +1324,11 @@ def config4_phase(pl, snap_dir):
     refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
                                         generator=exp.gen)
     torch.cuda.reset_peak_memory_stats()
+    ge.gated_epilogue.launches = 0
     refresh_ms = cuda_ms(refresh, 2, warmup=1)
     refresh_gb = torch.cuda.max_memory_allocated() / 1e9
     exp.bank = exp.bank._replace(cache_means=refresh())
+    gate = {"config4_cache_refresh": ge.gated_epilogue.launches}
     check(bool(torch.isfinite(exp.bank.cache_means).all())
           and tuple(exp.bank.cache_means.shape) == (C4_N, D),
           "Config 4 cache means")
@@ -1221,12 +1342,13 @@ def config4_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the train part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     exp.state, metrics = run(perm)
     loss = float(metrics["loss"])           # host read: ends the timed call
     dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
+    gate["config4_train"] = ge.gated_epilogue.launches
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"Config 4 training loss {loss}")
@@ -1259,11 +1381,12 @@ def config4_phase(pl, snap_dir):
           f"{n_syncs} times in 3 steps")
 
     # (d) the validation ELBO (eval bank encode + batches of 100, 100, 56)
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     val = exp.validate()
     val_s = time.perf_counter() - t0
     val_launches = pl.pairwise_lse.launches
+    gate["config4_validation"] = ge.gated_epilogue.launches
     want_val = -(-C4_VAL // cfg.test_batch_size)
     check(all(math.isfinite(v) for v in val), f"Config 4 validation {val}")
     check(val_launches == want_val, f"validation launched the kernel "
@@ -1284,7 +1407,9 @@ def config4_phase(pl, snap_dir):
     (snap_dir / C4_CFG_FILE).write_text(exp.cfg.to_json())
     del exp, run, prof
     torch.cuda.empty_cache()
+    ge.gated_epilogue.launches = 0
     eb = make_eval_bank_fn(m32, c32)(bank)
+    gate["config4_eval_bank"] = ge.gated_epilogue.launches
     rounds, r = -(-c32.S // c32.MB), c32.MB
     g = torch.Generator("cuda").manual_seed(7)
     eps = [(torch.randn((rounds, C4_T * r, D), generator=g, device="cuda"),
@@ -1294,11 +1419,12 @@ def config4_phase(pl, snap_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the IWAE part of the path: counts 0 just before, read after ----
-    pl.pairwise_lse.launches = 0
+    pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
     t0 = time.perf_counter()
     mean_k, nll_k = iwae_k(test_x, eb, eps=eps)
     iwae_ms = (time.perf_counter() - t0) * 1e3
     iwae_launches = pl.pairwise_lse.launches
+    gate["config4_iwae"] = ge.gated_epilogue.launches
     # ---- end ----
     iwae_gb = torch.cuda.max_memory_allocated() / 1e9
     _, nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False))(
@@ -1306,6 +1432,8 @@ def config4_phase(pl, snap_dir):
     err = float(np.abs(nll_k - nll_s).max())
     check(iwae_launches == rounds, f"the IWAE request launched the kernel "
           f"{iwae_launches} times, not {rounds} (one chunk of {C4_T})")
+    check_gate_counts(gate, eval_bank=4 * _chunks(C4_N, c32),
+                      iwae=3 * rounds + 8)
     check(nll_k.shape == (C4_T,) and bool(np.isfinite(nll_k).all()),
           "Config 4 IWAE NLL not finite")
     check(bool((np.abs(nll_k - nll_s) <= NLL_RTOL * np.abs(nll_s)).all()),
@@ -1315,14 +1443,14 @@ def config4_phase(pl, snap_dir):
         f"S={c32.S}, MB={r} ({rounds} rounds of {C4_T * r} rows), fp32, eval "
         f"bank N={C4_N}: {iwae_ms:.3f} ms (warm, host clock); mean NLL "
         f"{mean_k:.4f}; kernel vs scan max abs diff {err:.3e} (rtol "
-        f"{NLL_RTOL}); pairwise_lse launches {iwae_launches}; peak memory "
-        f"{iwae_gb:.2f} GB")
+        f"{NLL_RTOL}); pairwise_lse launches {iwae_launches}; gated_epilogue "
+        f"launches {gate['config4_iwae']}; peak memory {iwae_gb:.2f} GB")
     log_profile("config4-iwae", 1, profile_ms(
         lambda: iwae_k(test_x, eb, eps=eps)), unit="request")
     del m32, eb, eps, bank, test_x
     torch.cuda.empty_cache()
     return {"config4_train": train_launches, "config4_validation": val_launches,
-            "config4_iwae": iwae_launches}
+            "config4_iwae": iwae_launches}, gate
 
 
 def parting_rows(model, got, want, u, z2, eps1):
@@ -2503,6 +2631,7 @@ def main():
         serve_bundle_child(Path(sys.argv[2]))
         return
     from exemplar_vae_tpu_torch.device import resolve_device
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
     from exemplar_vae_tpu_torch.ops import masked_epilogue as me
     from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
 
@@ -2521,6 +2650,8 @@ def main():
     log(f"[build] pairwise_lse.cu: nvcc + load {build_s:.2f} s")
     log(f"[build] masked_epilogue.cu: nvcc + load "
         f"{me.build(verbose=True):.2f} s")
+    log(f"[build] gated_epilogue.cu: nvcc + load "
+        f"{ge.build(verbose=True):.2f} s")
 
     phase_s = {}
 
@@ -2532,16 +2663,17 @@ def main():
 
     kern = timed("kernel", kernel_phase, pl)
     epi = timed("epilogue", epilogue_phase, me)
+    gate, gate_launches = timed("gate", gate_phase, ge)
     timed("ingest", ingest_phase)
     launches, program_launches = timed("serve", serving_phase, pl)
     with tempfile.TemporaryDirectory() as snap:
         train_launches, cli_launches = timed("train", training_phase, pl,
                                              Path(snap))
         traj = timed("trajectory", trajectory_phase, pl, Path(snap))
-        c3 = timed("config3", config3_phase, pl, Path(snap))
+        c3, c3_gate = timed("config3", config3_phase, pl, Path(snap))
         pix, pix_epi = timed("pixel", pixel_phase, pl, Path(snap))
         c5 = timed("config5", config5_phase, pl, Path(snap))
-        c4 = timed("config4", config4_phase, pl, Path(snap))
+        c4, c4_gate = timed("config4", config4_phase, pl, Path(snap))
         sharded = timed("sharded", sharded_phase, pl, Path(snap))
 
     main_v = kern[("serving", "float32")]
@@ -2576,9 +2708,24 @@ def main():
         "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape": epi["shape"],
     }
+    gate4 = [v for v in gate if v["config"] == "config4"]
+    gate_entry = {
+        "name": "gated_epilogue", "route": "cuda",
+        "source": "exemplar_vae_tpu_torch/csrc/gated_epilogue.cu",
+        "replaces": None,
+        "launches": gate_launches + sum(c3_gate.values())
+        + sum(c4_gate.values()),
+        "launches_per_path": {"gate": gate_launches, **c3_gate, **c4_gate},
+        "max_abs_err": max(v["max_abs_err"] for v in gate),
+        # a convhvae-knn-score round's three calls; every shape in variants
+        "ms": sum(v["ms"] for v in gate4),
+        "plain_ms": sum(v["plain_ms"] for v in gate4),
+        "bound_ms": sum(v["bound_ms"] for v in gate4),
+        "bound_by": "bytes", "library_ms": None, "variants": gate,
+    }
     log(f"[done] {time.perf_counter() - t0:.1f} s after the build started; "
         f"seconds per phase: {phase_s}")
-    print(json.dumps({"kernels": [entry, epi_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, epi_entry, gate_entry]}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,7 +53,7 @@ _PHASE2 = "#pragma unroll 1\n        for (int kc = 0; kc < ks; ++kc)\n" + _HI_HI
 
 def _index(src: str, anchor: str) -> int:
     if anchor not in src:
-        raise RuntimeError(f"variant anchor not found in {pl.SOURCE.name}: {anchor[:60]!r}")
+        raise RuntimeError(f"variant anchor not found in {pl.LIB.source.name}: {anchor[:60]!r}")
     return src.index(anchor)
 
 
@@ -130,14 +130,14 @@ def main():
     checks = {"serving": args,
               "norms 10": (args[0] * s10, args[1] * s10) + args[2:]}
     want = {k: pl.pairwise_lse_plain(*a) for k, a in checks.items()}
-    source = pl.SOURCE
+    source = pl.LIB.source
     out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     try:
         for name, src in variants(source.read_text()).items():
             path = out_dir / f"{name}.cu"
             path.write_text(src)
-            pl.SOURCE, pl._lib = path, None
+            pl.LIB.source, pl.LIB.lib = path, None
             pl.build()
             for dt in (torch.float32, torch.bfloat16):
                 if name in ("hi_hi_only", "interleaved") and dt == torch.bfloat16:
@@ -151,7 +151,7 @@ def main():
                 print(f"[attribution] serving {str(dt)[6:]:8s} {name:12s} "
                       f"ms={ms:.4f}{err}", flush=True)
     finally:
-        pl.SOURCE, pl._lib = source, None
+        pl.LIB.source, pl.LIB.lib = source, None
     pl.build()
 
     from torch.profiler import ProfilerActivity, profile

@@ -9,8 +9,9 @@ is enc GC(32,7,s1) GC(32,3,s2) GC(64,5,s1) GC(64,3,s2), dec GCT(64,3,s2)
 GCT(32,3,s2) GC(32,3,s1).
 
 Data is NHWC at the model's boundary, as in the JAX package; the convs run
-on the NCHW view of it (channels-last in memory) and the dense heads read
-the conv features in NHWC flatten order. Requires H and W divisible by the
+on the NCHW view of it (channels-last in memory; the gated convs copy it
+NCHW-contiguous when no gradient flows in fp32, ``models/layers.py``) and
+the dense heads read the conv features in NHWC flatten order. Requires H and W divisible by the
 encoder's total downsampling, which must equal the decoder's upsampling.
 Submodules carry the flax names (``q_z2_conv_0``, ``p_x_deconv_2``).
 """

@@ -33,6 +33,14 @@ route, which at Config 4's decoder shapes on an H100 (fp32, TF32 off) is
 ~1.5x as fast as the dgrad engine it runs ``conv_transpose2d`` on, despite
 the zero taps (16/9 of the multiply-adds for k 3, s 2).
 ``conv_transpose_same.subpixel`` counts the calls that take the second route.
+
+The gated convs on that no-gradient route, in fp32, run NCHW-contiguous (a
+channels-last view from the models is copied once, at a stack's first
+layer; cuDNN's fp32 fprop kernels are NCHW, so it transposes nothing) and
+without their bias: the conv's raw sum, for a transposed conv the sub-pixel
+conv's phase-major channels with no depth-to-space copy, goes to one pass
+of ``ops/gated_epilogue.py`` that adds the biases, moves the phases to space
+and gates. ``gated_epilogue.launches`` counts those calls.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from exemplar_vae_tpu_torch.ops.gated_epilogue import gated_epilogue
 
 # flax's truncated-normal variance scaling divides by the std of a standard
 # normal truncated to [-2, 2]
@@ -176,11 +186,11 @@ def _subpixel_taps(k: int, s: int):
     return (-lo, hi), taps
 
 
-def _conv_transpose_subpixel(x, w_hwio, b, stride):
-    """conv_transpose_same's forward-only route: one stride-1 conv with
-    s_h*s_w*out channels, phase-major, then one depth-to-space copy that
-    adds the bias, into the layout the conv returned (channels-last stays
-    channels-last)."""
+def _subpixel_conv(x, w_hwio, stride):
+    """The sub-pixel form's stride-1 conv, with no bias: s_h*s_w*out
+    channels, phase-major (channel (a*s_w + b)*out + c holds output phase
+    (a, b) of channel c), in the memory format of x. Counted in
+    ``conv_transpose_same.subpixel``."""
     (sh, sw), f = stride, w_hwio.shape[3]
     (ph, taps_h), (pw, taps_w) = (_subpixel_taps(w_hwio.shape[0], sh),
                                   _subpixel_taps(w_hwio.shape[1], sw))
@@ -192,10 +202,18 @@ def _conv_transpose_subpixel(x, w_hwio, b, stride):
     # (sh, sw, kh, kw, in, out) -> (sh*sw*out, in, kh, kw)
     w = w.view(sh, sw, kh, kw, *w_hwio.shape[2:]).permute(0, 1, 5, 4, 2, 3)
     w = w.reshape(sh * sw * f, w_hwio.shape[2], kh, kw)
+    conv_transpose_same.subpixel += 1
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        y = F.conv2d(x, w, padding=(ph[0], pw[0]))
-    else:
-        y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w)
+        return F.conv2d(x, w, padding=(ph[0], pw[0]))
+    return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w)
+
+
+def _conv_transpose_subpixel(x, w_hwio, b, stride):
+    """conv_transpose_same's forward-only route: the sub-pixel conv, then
+    one depth-to-space copy that adds the bias, into the layout the conv
+    returned (channels-last stays channels-last)."""
+    (sh, sw), f = stride, w_hwio.shape[3]
+    y = _subpixel_conv(x, w_hwio, stride)
     n, _, h, wd = y.shape
     y6 = y.unflatten(1, (sh, sw, f))                # (N, sh, sw, out, H, W)
     if y.is_contiguous(memory_format=torch.channels_last):
@@ -207,7 +225,6 @@ def _conv_transpose_subpixel(x, w_hwio, b, stride):
         src, bias = y6.permute(0, 3, 4, 1, 5, 2), b.view(f, 1, 1, 1, 1)
         y = out.view(n, f, h * sh, wd * sw)
     torch.add(src, bias, out=out)
-    conv_transpose_same.subpixel += 1
     return y
 
 
@@ -252,7 +269,15 @@ class Conv(nn.Module):
 
 class _GatedConvBase(nn.Module):
     """h * sigmoid(g) of one 2F-channel conv over separate value and gate
-    params (HWIO kernels), no activation (the conv stacks use none)."""
+    params (HWIO kernels), no activation (the conv stacks use none).
+
+    With no gradient to carry (grad mode off, or neither x nor a param
+    requiring grad) and an fp32 compute dtype, the conv runs NCHW-contiguous
+    without its bias (a transposed conv: its sub-pixel conv, no
+    depth-to-space copy) and ``ops/gated_epilogue.py`` adds the biases, moves
+    the phases to space and gates in one pass, in the unfused chain's order
+    (the same bits from the same conv output). Otherwise the conv with its
+    bias, ``chunk``, sigmoid and product."""
 
     def __init__(self, c_in: int, features: int, kernel_size, strides, *,
                  dtype=None, generator=None):
@@ -265,9 +290,20 @@ class _GatedConvBase(nn.Module):
         self.strides = tuple(strides)
         self.dtype = dtype
 
+    def _fused_route(self, x, dt) -> bool:
+        return dt == torch.float32 and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *self.parameters())))
+
     def forward(self, x):
         dt = self.dtype or self.h_kernel.dtype
         w = torch.cat([self.h_kernel.to(dt), self.g_kernel.to(dt)], dim=-1)
+        if self._fused_route(x, dt):
+            # contiguous() leaves a C = 1 channels-last view's strides as they
+            # are (a size-1 dim's stride is free) and the convs read them as
+            # channels-last; the flat view gives it NCHW strides
+            x = x.to(dt).contiguous().flatten().view(x.shape)
+            y, phases = self._raw_conv(x, w)
+            return gated_epilogue(y, self.h_bias, self.g_bias, phases)
         b = torch.cat([self.h_bias.to(dt), self.g_bias.to(dt)])
         h, g = torch.chunk(self._conv(x.to(dt), w, b, self.strides), 2,
                            dim=1)
@@ -278,10 +314,16 @@ class GatedConv2d(_GatedConvBase):
     """Gated convolution, SAME padding."""
     _conv = staticmethod(conv_same)
 
+    def _raw_conv(self, x, w):
+        return conv_same(x, w, None, self.strides), (1, 1)
+
 
 class GatedConvTranspose2d(_GatedConvBase):
     """Gated transposed convolution, SAME padding (output = input * s)."""
     _conv = staticmethod(conv_transpose_same)
+
+    def _raw_conv(self, x, w):
+        return _subpixel_conv(x, w, self.strides), self.strides
 
 
 class MaskedConv2d(nn.Module):

@@ -21,32 +21,19 @@ gradient raises.
 from __future__ import annotations
 
 import ctypes
-import time
 from pathlib import Path
 
 import torch
 
-from exemplar_vae_tpu_torch.ops.nvcc import compile_library
+from exemplar_vae_tpu_torch.ops.nvcc import Library, forward_only
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "masked_epilogue.cu"
-_lib = None
-
-
-def build(verbose: bool = False) -> float:
-    """Compile csrc/masked_epilogue.cu for sm_90a into _build/ and load it.
-    Returns the seconds spent, 0.0 when the library was already loaded."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib = ctypes.CDLL(str(compile_library(SOURCE, "masked_epilogue",
-                                          verbose)))
-    lib.masked_epilogue_forward.argtypes = (
+# csrc/masked_epilogue.cu, built into _build/ at first use
+LIB = Library(
+    Path(__file__).resolve().parents[1] / "csrc" / "masked_epilogue.cu",
+    "masked_epilogue", {"masked_epilogue_forward": (
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p])
-    lib.masked_epilogue_forward.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+        + [ctypes.c_void_p], ctypes.c_int)})
+build = LIB.build
 
 
 def _check(h, bias, ctx):
@@ -98,14 +85,8 @@ def _launch(h, bias, ctx, planes, channels, hw):
     """One call of the C interface over ``planes`` (rows x channels)
     planes of ``hw`` values on h's current stream; raises where the kernel
     refuses it."""
-    build()
-    with torch.cuda.device(h.device):
-        err = _lib.masked_epilogue_forward(
-            h.data_ptr(), bias.data_ptr(), ctx.data_ptr(), planes, channels,
-            hw, torch.cuda.current_stream(h.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"masked_epilogue kernel launch failed: "
-                           f"cudaError {err}")
+    LIB.launch("masked_epilogue_forward", h.device, h.data_ptr(),
+               bias.data_ptr(), ctx.data_ptr(), planes, channels, hw)
 
 
 def masked_epilogue(h, bias, ctx):
@@ -116,11 +97,8 @@ def masked_epilogue(h, bias, ctx):
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_epilogue runs on cuda or cpu, not {h.device}")
     _check(h, bias, ctx)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (h, bias, ctx)):
-        raise RuntimeError(
-            "the masked-epilogue op is forward-only; a stack that carries a "
-            "gradient adds the bias, the context and the ReLU unfused")
+    forward_only("masked-epilogue", "a stack that carries a gradient adds "
+                 "the bias, the context and the ReLU unfused", h, bias, ctx)
     _epilogue_op(h, bias, ctx)
     return h
 

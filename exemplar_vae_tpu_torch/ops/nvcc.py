@@ -1,17 +1,23 @@
 """nvcc for the port's CUDA kernels: one source with a plain C interface
 into a shared library for sm_90a, in the package's git-ignored _build/,
 keyed by the source's hash (an edited source is rebuilt; a library built
-from the same source is reused as it is). The kernels' wrappers call it at
-first use, never at import."""
+from the same source is reused as it is). The kernels' wrappers hold one
+``Library`` each, which builds and loads it at first use, never at import,
+and launches its C functions; ``forward_only`` is their common refusal of a
+call that needs a gradient."""
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -50,3 +56,47 @@ def compile_library(source: Path, stem: str, verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}")
     os.replace(tmp, so)
     return so
+
+
+class Library:
+    """A kernel library loaded through ctypes at its first use:
+    ``source`` compiled by compile_library under ``stem``, its C functions
+    typed by ``signatures`` (name -> (argtypes, restype)). ``source`` may
+    be pointed at another file, with ``lib`` set to None, to build a
+    variant."""
+
+    def __init__(self, source: Path, stem: str, signatures: dict):
+        self.source, self.stem, self.signatures = Path(source), stem, signatures
+        self.lib = None
+
+    def build(self, verbose: bool = False) -> float:
+        """Compile (or reuse) and load the library. Returns the seconds
+        spent, 0.0 when it was already loaded."""
+        if self.lib is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(compile_library(self.source, self.stem,
+                                              verbose)))
+        for name, (argtypes, restype) in self.signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        self.lib = lib
+        return time.perf_counter() - t0
+
+    def launch(self, name: str, device, *args) -> None:
+        """``name(*args, stream)`` with ``device`` current and its current
+        stream last; raises where the function returns a cudaError."""
+        self.build()
+        with torch.cuda.device(device):
+            err = getattr(self.lib, name)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.stem} kernel launch failed: "
+                               f"cudaError {err}")
+
+
+def forward_only(op: str, advice: str, *tensors) -> None:
+    """Raise where a call of the forward-only ``op`` would need a gradient:
+    grad mode on and one of ``tensors`` requiring grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {op} op is forward-only; {advice}")

@@ -26,45 +26,31 @@ wrapper with grad mode off and recomputes the weights in its backward.
 from __future__ import annotations
 
 import ctypes
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from exemplar_vae_tpu_torch.ops.nvcc import compile_library
+from exemplar_vae_tpu_torch.ops.nvcc import Library, forward_only
 
 NEG_INF = -1e30
 PAD_IDX = -2          # exemplar-index sentinel: always masked
 NO_LOO_IDX = -1       # row-index sentinel when there is no leave-one-out
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "pairwise_lse.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+# csrc/pairwise_lse.cu, built into _build/ at first use (keyed by the
+# source's hash, so an edited source is rebuilt)
+LIB = Library(
+    Path(__file__).resolve().parents[1] / "csrc" / "pairwise_lse.cu",
+    "pairwise_lse", {
+        "pairwise_lse_max_d": ([], ctypes.c_int),
+        "pairwise_lse_scratch_floats": ([ctypes.c_int] * 5,
+                                        ctypes.c_longlong),
+        "pairwise_lse_forward": ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                 + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p] * 3, ctypes.c_int)})
+build = LIB.build
 _sm_count: dict = {}     # device index -> SM count, read once per device
-
-
-def build(verbose: bool = False) -> float:
-    """Compile csrc/pairwise_lse.cu for sm_90a into _build/ (keyed by the
-    source's hash, so an edited source is rebuilt) and load it. Returns the
-    seconds spent, 0.0 when the library was already loaded."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    so = compile_library(SOURCE, "pairwise_lse", verbose)
-    lib = ctypes.CDLL(str(so))
-    lib.pairwise_lse_max_d.argtypes = []
-    lib.pairwise_lse_max_d.restype = ctypes.c_int
-    lib.pairwise_lse_scratch_floats.argtypes = [ctypes.c_int] * 5
-    lib.pairwise_lse_scratch_floats.restype = ctypes.c_longlong
-    lib.pairwise_lse_forward.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 3)
-    lib.pairwise_lse_forward.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
 
 
 def _check(z, means, log_var, data_idx, ex_idx, valid):
@@ -156,9 +142,9 @@ def _lse_launch(z, means, log_var, data_idx, ex_idx, valid, in_dtype,
     build()
     b, d = z.shape
     n = means.shape[0]
-    if d > _lib.pairwise_lse_max_d():
-        raise ValueError(f"the kernel takes D <= {_lib.pairwise_lse_max_d()}, "
-                         f"got {d}")
+    if d > LIB.lib.pairwise_lse_max_d():
+        raise ValueError(f"the kernel takes D <= {LIB.lib.pairwise_lse_max_d()}"
+                         f", got {d}")
     zc = z.to(in_dtype)
     mc = means.to(in_dtype)
     for name, t in (("z", zc), ("means", mc), ("ex_idx", ex_idx),
@@ -175,18 +161,14 @@ def _lse_launch(z, means, log_var, data_idx, ex_idx, valid, in_dtype,
         sm = torch.cuda.get_device_properties(z.device).multi_processor_count
         _sm_count[z.device.index] = sm
     code = _DTYPE_CODE[in_dtype]
-    scratch = torch.empty((_lib.pairwise_lse_scratch_floats(code, b, n, d, sm),),
-                          dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        err = _lib.pairwise_lse_forward(
-            code, zc.data_ptr(), mc.data_ptr(),
-            lv.data_ptr(),
-            data_idx.data_ptr() if data_idx is not None else None,
-            ex_idx.data_ptr(), valid.data_ptr(), b, n, d, sm,
-            scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(z.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"pairwise_lse kernel launch failed: cudaError {err}")
+    scratch = torch.empty(
+        (LIB.lib.pairwise_lse_scratch_floats(code, b, n, d, sm),),
+        dtype=torch.float32, device=z.device)
+    LIB.launch("pairwise_lse_forward", z.device, code, zc.data_ptr(),
+               mc.data_ptr(), lv.data_ptr(),
+               data_idx.data_ptr() if data_idx is not None else None,
+               ex_idx.data_ptr(), valid.data_ptr(), b, n, d, sm,
+               scratch.data_ptr(), out.data_ptr())
     pairwise_lse.launches += 1
     return out
 
@@ -204,12 +186,10 @@ def pairwise_lse(z, means, log_var, data_idx, ex_idx, valid, *,
     if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pairwise_lse runs on cuda or cpu, not {z.device}")
     _check(z, means, log_var, data_idx, ex_idx, valid)
-    if torch.is_grad_enabled() and (z.requires_grad or means.requires_grad
-                                    or log_var.requires_grad):
-        raise RuntimeError(
-            "the pairwise-LSE op is forward-only; for gradients call "
-            "ops.exemplar_prior.exemplar_log_prob, whose backward recomputes "
-            "the weights, or call this under torch.no_grad().")
+    forward_only("pairwise-LSE", "for gradients call "
+                 "ops.exemplar_prior.exemplar_log_prob, whose backward "
+                 "recomputes the weights, or call this under "
+                 "torch.no_grad().", z, means, log_var)
     return _lse_op(z, means, log_var, data_idx, ex_idx, valid, in_dtype,
                    int(block_n))
 

@@ -22,8 +22,10 @@ every draw (exemplar index, top latent, a two-level model's z1; the IWAE's
 per round) is an input tensor. The exemplar prior's pairwise LSE stays one
 node of the program, the custom op ``exemplar_vae_tpu_torch::pairwise_lse``
 (ops/pairwise_lse.py: the CUDA kernel on the card, its plain version on the
-CPU). The manifest lists the programs and the device type they were
-exported on (``"platforms"``), and names its writer (``"exported_by":
+CPU), and so does a ConvHVAE's gated-conv epilogue,
+``exemplar_vae_tpu_torch::gated_epilogue`` (ops/gated_epilogue.py). The
+manifest lists the programs and the device type they were exported on
+(``"platforms"``), and names its writer (``"exported_by":
 "exemplar_vae_tpu_torch"``); the JAX package's loader, which needs its
 ``.bin`` programs, refuses it.
 
@@ -48,8 +50,8 @@ import torch.utils._pytree as pytree
 
 from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.device import as_tensor, resolve_device
-# registers the op that the programs call, before torch.export.load
-from exemplar_vae_tpu_torch.ops import pairwise_lse  # noqa: F401
+# registers the ops that the programs call, before torch.export.load
+from exemplar_vae_tpu_torch.ops import gated_epilogue, pairwise_lse  # noqa: F401
 from exemplar_vae_tpu_torch.weights import params_from_keystr, params_to_keystr
 
 PROGRAMS = ("generate", "reference_generate", "score_nll")

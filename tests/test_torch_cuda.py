@@ -616,8 +616,9 @@ def test_cuda_exported_program_launches_the_kernel(dev, tmp_path):
 def test_config4_subpixel_decode_on_card_matches_transpose_route(
         dev, monkeypatch):
     """Config 4's decoder on 500 samples on the card, TF32 off: the
-    sub-pixel route (no_grad) against the F.conv_transpose2d formulation,
-    both fp32 through cuDNN: rtol 1e-5 / atol 1e-5."""
+    sub-pixel route (no_grad; the fused gated epilogue) against the
+    F.conv_transpose2d formulation with the unfused gate, both fp32 through
+    cuDNN: rtol 1e-5 / atol 1e-5."""
     import torch.nn.functional as F
 
     from exemplar_vae_tpu_torch.config import Config
@@ -646,6 +647,8 @@ def test_config4_subpixel_decode_on_card_matches_transpose_route(
         assert layers.conv_transpose_same.subpixel == before + 2
         monkeypatch.setattr(layers.GatedConvTranspose2d, "_conv",
                             staticmethod(transpose_route))
+        monkeypatch.setattr(layers._GatedConvBase, "_fused_route",
+                            lambda self, x, dt: False)
         want = model.decode(z1, z2)
         assert not torch.backends.cudnn.allow_tf32
     torch.cuda.synchronize()
@@ -730,3 +733,93 @@ def test_pixelhvae_decode_routes_on_card(dev):
           f"abs diff {float((fused - parent).abs().max()):.3e}; "
           f"log-likelihood gap {gap:.3e}")
     assert gap <= 5e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f,hw,phases,offset", [
+    (1, 32, (16, 16), (2, 2), 0), (7, 64, (16, 16), (2, 2), 0),
+    (2000, 32, (32, 32), (2, 2), 0), (3, 32, (64, 64), (1, 1), 0),
+    (5, 64, (16, 16), (1, 1), 0), (5, 32, (7, 7), (2, 2), 0),
+    (5, 32, (7, 7), (1, 1), 0), (3, 32, (16, 16), (2, 2), 1),
+    (3, 32, (16, 16), (1, 1), 1), (3, 8, (5, 6), (3, 3), 0),
+    (3, 8, (8, 8), (1, 2), 0)])
+def test_gated_epilogue_kernel_matches_plain(dev, rows, f, hw, phases,
+                                             offset):
+    """The gated convs' fused epilogue on the card against its plain
+    version at (R, s_h*s_w*2F, h, w): bitwise, the same fp32 chain in the
+    same order. 2x2 phases over a w that is a multiple of 4, and no phases
+    over an h*w that is, take the float4 kernels; an odd h*w, a y 4 bytes
+    off a 16-byte boundary and other phases the scalar one; one launch a
+    call, a fresh NCHW-contiguous output."""
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
+    shape = (rows, 2 * f * phases[0] * phases[1]) + hw
+    g = torch.Generator(device=dev).manual_seed(rows + f)
+    flat = torch.randn(int(np.prod(shape)) + offset, generator=g, device=dev)
+    y = flat[offset:].view(shape)
+    hb = torch.randn((f,), generator=g, device=dev)
+    gb = torch.randn((f,), generator=g, device=dev)
+    want = ge.gated_epilogue_plain(y, hb, gb, *phases)
+    before = ge.gated_epilogue.launches
+    got = ge.gated_epilogue(y, hb, gb, phases)
+    torch.cuda.synchronize()
+    assert ge.gated_epilogue.launches == before + 1
+    assert got.shape == (rows, f, hw[0] * phases[0], hw[1] * phases[1])
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gated_epilogue_refusals_on_card(dev):
+    """A channels-last y is refused before a launch; sizes that the kernel
+    refuses (a size that is not positive, one row of R past 2^31 - 2^16
+    units) raise without a launch, and nothing is counted."""
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
+    y = torch.randn((2, 256, 16, 16), device=dev)
+    hb, gb = torch.randn((32,), device=dev), torch.randn((32,), device=dev)
+    out = torch.zeros((2, 32, 32, 32), device=dev)
+    before = ge.gated_epilogue.launches
+    with pytest.raises(ValueError, match="NCHW"):
+        ge.gated_epilogue(y.contiguous(memory_format=torch.channels_last),
+                          hb, gb, (2, 2))
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        ge._launch(y, hb, gb, out, 2, 0, 2, 2, 16, 16)
+    with pytest.raises(RuntimeError, match="cudaError 9$"):
+        ge._launch(y, hb, gb, out, 2, 1 << 20, 1, 1, 128, 128)
+    torch.cuda.synchronize()
+    assert ge.gated_epilogue.launches == before
+    assert not out.any()
+
+
+@pytest.mark.cuda
+def test_config4_gated_decode_on_card_matches_parent_route(dev, monkeypatch):
+    """Config 4's decoder on 500 samples on the card, TF32 off: the no-grad
+    decode (NCHW convs without bias, the fused epilogue, 3 launches) against
+    the parent's route (the convs with their bias on the channels-last view,
+    the depth-to-space add, the unfused gate): rtol 1e-5 / atol 1e-5, the
+    tolerance of the sub-pixel test above; whether the means are bitwise
+    equal is printed."""
+    from exemplar_vae_tpu_torch.config import Config
+    from exemplar_vae_tpu_torch.models import create_model, layers
+    from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
+    cfg = Config(model_name="convhvae_2level", hidden_size=300, z1_size=40,
+                 z2_size=40, input_size=(3, 64, 64), input_type="continuous",
+                 dynamic_binarization=False, number_components=300)
+    model = create_model(cfg, device=dev, seed=0).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    z1 = torch.randn((500, 40), generator=g, device=dev)
+    z2 = torch.randn((500, 40), generator=g, device=dev)
+    before = ge.gated_epilogue.launches
+    with torch.no_grad():
+        got = model.decode(z1, z2)
+        assert ge.gated_epilogue.launches == before + 3
+        monkeypatch.setattr(layers._GatedConvBase, "_fused_route",
+                            lambda self, x, dt: False)
+        want = model.decode(z1, z2)
+    assert ge.gated_epilogue.launches == before + 3
+    assert not torch.backends.cudnn.allow_tf32
+    torch.cuda.synchronize()
+    print(f"gated decode routes: means bitwise {torch.equal(got[0], want[0])},"
+          f" max abs diff {float((got[0] - want[0]).abs().max()):.3e}")
+    for a, r in zip(got, want):
+        assert a.shape == (500, 64, 64, 3)
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)

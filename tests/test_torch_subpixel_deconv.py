@@ -128,7 +128,8 @@ def _config4(**kw):
 
 def test_config4_decode_no_grad_matches_oracle_decode(monkeypatch):
     """Config 4's decoder (t64k3s2, t32k3s2, c32k3s1 from 16x16) under
-    no_grad on 2 samples: two counted calls, the oracle's decode to 1e-5."""
+    no_grad on 2 samples: two counted calls, the oracle's decode (the
+    unfused gate over F.conv_transpose2d) to 1e-5."""
     model = create_model(_config4(), device="cpu", seed=0)
     g = torch.Generator().manual_seed(0)
     z1, z2 = torch.randn((2, 40), generator=g), torch.randn((2, 40), generator=g)
@@ -138,6 +139,8 @@ def test_config4_decode_no_grad_matches_oracle_decode(monkeypatch):
         assert conv_transpose_same.subpixel == before + 2
         monkeypatch.setattr(layers.GatedConvTranspose2d, "_conv",
                             staticmethod(oracle))
+        monkeypatch.setattr(layers._GatedConvBase, "_fused_route",
+                            lambda self, x, dt: False)
         want = model.decode(z1, z2)
     assert conv_transpose_same.subpixel == before + 2
     for a, r in zip(got, want):
