@@ -189,7 +189,17 @@ Phases; any failure exits non-zero before the result lines:
    gradients as in (a), and no kernel launch. (c) For (b), per rank and for
    one process: the rows the batch forward and the re-encode saw (50 and
    500 against 100 and 1000) and the device ms of a profiled step (two
-   ranks share one card: no sharding speed);
+   ranks share one card: no sharding speed). (d) On a host with NCCL_W = 4
+   cards, (b) and (c) again on 4 NCCL ranks, one a card (torchrun,
+   ``--sharded-rank <dir> nccl``), the bank split 50 000 a rank, 25 rows
+   of each batch: the first run of the mesh over NCCL across cards; on
+   fewer cards it is skipped and says so. In (d) a row's K selected rows
+   may stand in another order than one process's only where they are the
+   same set and, at every position that differs, the two rows' distances
+   (recomputed from one process's q and cache) lie within the kNN's own
+   rounding, TIE_ULPS ulps of |q|^2 + |c|^2 (its distances are
+   |q|^2 + |c|^2 - 2 q.c in fp32, and a rank's q comes from 25 rows, not
+   100); any other difference fails;
 13. the kernels line, the card's name and power limit, and the ok line.
 """
 
@@ -197,6 +207,7 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -226,6 +237,8 @@ C4_N, C4_VAL, C4_T, C4_CHUNK = 200_000, 256, 10, 4096
 # of Config 1's bank (C4_N / SHARD_W of Config 4's) and TRAIN_B / SHARD_W
 # rows of every batch; Config 4's images and config as [config4] left them
 SHARD_W = 2
+# [sharded] (d): NCCL ranks, one a card, on a host with this many cards
+NCCL_W = 4
 C4_X_FILE, C4_CFG_FILE = "c4_train_x.npy", "c4_cfg.json"
 # (name, B, N, LOO) of every pairwise_lse call the paths below make:
 # serving and Config 3's IWAE (B = points x MB = N), the train step,
@@ -255,6 +268,9 @@ TRAIN_B, TRAIN_STEPS, WARM_STEPS, PROF_STEPS = 100, 200, 20, 10
 # from the scan's by up to ~2e-5, which scales each row's prior weights by
 # 1 +- 2e-5 in the shared backward
 STEP_LOSS_RTOL, GRAD_REL = 1e-5, 1e-4
+# [sharded] (d): two selected rows tie where their distances differ by at
+# most this many fp32 ulps of |q|^2 + |c|^2 (pairwise_sq_dist's rounding)
+TIE_ULPS = 8
 # [trajectory]: Config 1's run through the kernel and through the scan
 # prior from one seed, plain Adam; validation images, IWAE points (cut from
 # the test split), epochs, warm-up and the limit on each per-epoch
@@ -1883,14 +1899,65 @@ def _step_grads(model):
     return {k: p.grad.cpu() for k, p in model.named_parameters()}
 
 
-def sharded_child(work):
+def _sharded_child_exact(work, cfg, mesh, dev, terms):
+    """[sharded] (a) on one rank: Config 1's exact step from the parent's
+    params and noise, then a second step outside the count."""
+    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.ops import pairwise_lse as pl
+    from exemplar_vae_tpu_torch.train.loss import Bank
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_train_step)
+
+    inp = torch.load(work / "inputs.pt", weights_only=True)
+    model = create_model(cfg, device=dev)
+    model.load_state_dict(inp["params"])
+    seen_a = _watch_rows(model)
+    bank_x = _sharded_bank(dev)
+    lo, hi = mesh.shard_range(N_BANK)
+    bank = Bank(images=bank_x[lo:hi],
+                data_idx=torch.arange(lo, hi, dtype=torch.int32,
+                                      device=dev),
+                valid=torch.ones(hi - lo, dtype=torch.bool, device=dev),
+                cache_means=None, n_effective=N_BANK)
+    rows = inp["rows"].to(dev)
+    step = make_train_step(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    # ---- the path's step: counts 0 just before, read after ----
+    pl.pairwise_lse.launches = 0
+    t0 = time.perf_counter()
+    _, aux = step(init_train_state(model, cfg), bank_x[rows],
+                  rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
+                  eps=inp["eps"].to(dev))
+    loss_a = terms(aux)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = pl.pairwise_lse.launches
+    # ---- end ----
+    out = {"loss": loss_a[0], "launches": launches, "step_ms": step_ms,
+           "grads": _step_grads(model), "rows": _copy_rows(seen_a)}
+    # a second step, outside the count: the first pays the process's
+    # first cuBLAS, kernel-module and collective calls
+    t0 = time.perf_counter()
+    _, aux = step(init_train_state(model, cfg), bank_x[rows],
+                  rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
+                  eps=inp["eps"].to(dev))
+    terms(aux)
+    out["step2_ms"] = (time.perf_counter() - t0) * 1e3
+    del model, bank_x, bank, step
+    torch.cuda.empty_cache()
+
+    return out
+
+
+def sharded_child(work, backend="gloo"):
     """One rank of the [sharded] phase (torchrun sets RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR/PORT): gloo ranks sharing cuda:0, data-parallel
-    (TRAIN_B / SHARD_W rows of each batch), each holding 1 / SHARD_W of the
-    bank. (a) One Config 1 exact step from the parent's params and noise;
-    (b) one Config 4 approximate step from the parent's params, noise and
-    cache, its kNN selection recorded, then a profiled step. Writes
-    rank<r>.pt into ``work``."""
+    LOCAL_RANK, MASTER_ADDR/PORT), data-parallel (TRAIN_B / W rows of each
+    batch), each holding 1 / W of the bank: gloo ranks sharing cuda:0, or
+    NCCL ranks on cuda:LOCAL_RANK. (a) One Config 1 exact step from the
+    parent's params and noise (gloo only); (b) one Config 4 approximate
+    step from the parent's params, noise and cache, its kNN selection
+    recorded, then a profiled step. Writes rank<r>.pt into ``work``."""
+    import os
+
     import torch.distributed as dist
 
     from exemplar_vae_tpu_torch.device import resolve_device
@@ -1904,12 +1971,14 @@ def sharded_child(work):
     from exemplar_vae_tpu_torch.train.steps import (init_train_state,
                                                     make_train_step)
 
-    dev = resolve_device("cuda:0")
-    init_distributed(dev, backend="gloo")
+    world = int(os.environ["WORLD_SIZE"])
+    dev = resolve_device("cuda:0" if backend == "gloo" else
+                         f"cuda:{os.environ['LOCAL_RANK']}")
+    init_distributed(dev, backend=backend)
     try:
-        cfg = _sharded_cfg().replace(mesh_shape=(SHARD_W,))
+        cfg = _sharded_cfg().replace(mesh_shape=(world,))
         mesh = create_mesh(cfg, dev)
-        check(mesh is not None and mesh.size == SHARD_W, "no mesh")
+        check(mesh is not None and mesh.size == world, "no mesh")
         log(f"[sharded] rank {mesh.rank}: backend {dist.get_backend()}, "
             f"world_size {dist.get_world_size()}, device {mesh.device}, "
             f"{'' if banned_modules() == [] else 'JAX LOADED '}"
@@ -1921,47 +1990,13 @@ def sharded_child(work):
                                              ("loss", "re", "kl")]))
             return [float(v) for v in t]
 
-        # (a) Config 1, exact prior
-        inp = torch.load(work / "inputs.pt", weights_only=True)
-        model = create_model(cfg, device=dev)
-        model.load_state_dict(inp["params"])
-        seen_a = _watch_rows(model)
-        bank_x = _sharded_bank(dev)
-        lo, hi = mesh.shard_range(N_BANK)
-        bank = Bank(images=bank_x[lo:hi],
-                    data_idx=torch.arange(lo, hi, dtype=torch.int32,
-                                          device=dev),
-                    valid=torch.ones(hi - lo, dtype=torch.bool, device=dev),
-                    cache_means=None, n_effective=N_BANK)
-        rows = inp["rows"].to(dev)
-        step = make_train_step(cfg, mesh=mesh)
-        torch.cuda.synchronize()
-        # ---- the path's step: counts 0 just before, read after ----
-        pl.pairwise_lse.launches = 0
-        t0 = time.perf_counter()
-        _, aux = step(init_train_state(model, cfg), bank_x[rows],
-                      rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
-                      eps=inp["eps"].to(dev))
-        loss_a = terms(aux)
-        step_ms = (time.perf_counter() - t0) * 1e3
-        launches = pl.pairwise_lse.launches
-        # ---- end ----
-        out = {"loss": loss_a[0], "launches": launches, "step_ms": step_ms,
-               "grads": _step_grads(model), "rows": _copy_rows(seen_a)}
-        # a second step, outside the count: the first pays the process's
-        # first cuBLAS, kernel-module and collective calls
-        t0 = time.perf_counter()
-        _, aux = step(init_train_state(model, cfg), bank_x[rows],
-                      rows.to(torch.int32), bank, 1.0, u=inp["u"].to(dev),
-                      eps=inp["eps"].to(dev))
-        terms(aux)
-        out["step2_ms"] = (time.perf_counter() - t0) * 1e3
-        del model, bank_x, bank, step
-        torch.cuda.empty_cache()
+        out = {}
+        if backend == "gloo":
+            out = _sharded_child_exact(work, cfg, mesh, dev, terms)
 
         # (b) Config 4, approximate prior per row
         c4 = torch.load(work / "c4_inputs.pt", weights_only=True)
-        cfg4 = _sharded_c4_cfg(work.parent).replace(mesh_shape=(SHARD_W,))
+        cfg4 = _sharded_c4_cfg(work.parent).replace(mesh_shape=(world,))
         images = np.load(work.parent / C4_X_FILE, mmap_mode="r")
         lo, hi = mesh.shard_range(C4_N)
         rows = c4["rows"]
@@ -2091,6 +2126,77 @@ def _check_grads(tag, got, want, dev):
     return worst
 
 
+def _tied_reorders(sel, want, q, cache, dev):
+    """The rows of ``sel`` (B, K) whose order differs from ``want``'s
+    within a tie: the same K rows, and at each position that differs, the
+    two rows' distances to q (recomputed in fp32 as (q - c)^2) within
+    TIE_ULPS ulps of |q|^2 + |c|^2. (tied rows, rows that differ otherwise,
+    the log lines of the first five that differ)."""
+    tied, other, lines = [], [], []
+    for b in (sel != want).any(1).nonzero().flatten().tolist():
+        qb = q[b].to(dev)
+
+        def dist(cols):
+            c = cache[cols.to(dev)]
+            return ((qb[None] - c) ** 2).sum(-1), (c * c).sum(-1)
+
+        d_got, c2_got = dist(sel[b])
+        d_want, c2_want = dist(want[b])
+        tol = TIE_ULPS * 2.0 ** -23 * (float((qb * qb).sum())
+                                       + torch.maximum(c2_got, c2_want))
+        moved = sel[b] != want[b]
+        ok = (torch.equal(sel[b].sort().values, want[b].sort().values)
+              and bool(((d_got - d_want).abs() <= tol)[moved.to(dev)].all()))
+        (tied if ok else other).append(b)
+        if len(lines) < 5:
+            lines.append(
+                f"row {b}: one process's rows {want[b].tolist()} at "
+                f"distances {d_want.tolist()}; the rank's {sel[b].tolist()} "
+                f"at {d_got.tolist()}; tie allowance "
+                f"{tol[moved.to(dev)].tolist()}: "
+                f"{'a tie' if ok else 'not a tie'}")
+    return tied, other, lines
+
+
+def _check_c4_rank(tag, r, out, c4, dev, note, ties=False):
+    """[sharded]'s Config 4 checks of rank ``r`` (``out``: its rank<r>.pt):
+    each batch row's K selected bank rows equal to one process's, in order
+    (``ties``: or in another order within a tie, _tied_reorders), no
+    kernel launch, the loss and gradients as in (a), the rows its forward
+    and re-encode saw; and the log lines."""
+    o4, world = out["c4"], out["world_size"]
+    k = c4["selection"].shape[1]
+    b_r = TRAIN_B // world
+    sel, want = o4["selection"], c4["selection"]
+    tied, other, lines = _tied_reorders(sel, want, c4["q"], c4["cache"], dev)
+    for line in lines:
+        log(f"[sharded] {tag} rank {r} {line}")
+    check(not other and (ties or not tied), f"{tag} rank {r}'s Config 4 kNN "
+          f"selection differs from one process's in rows {other or tied}")
+    check(o4["launches"] == 0, f"{tag} rank {r}'s approximate step launched "
+          f"the kernel {o4['launches']} times")
+    rel4 = abs(o4["loss"] - c4["loss"]) / abs(c4["loss"])
+    check(rel4 <= STEP_LOSS_RTOL, f"{tag} rank {r} Config 4 loss "
+          f"{o4['loss']} vs one process {c4['loss']}")
+    worst4 = _check_grads(f"{tag} rank {r} Config 4", o4["grads"],
+                          c4["grads"], dev)
+    check(o4["rows"] == {"forward": [b_r], "reencode": [b_r * k]},
+          f"{tag} rank {r}'s Config 4 step saw rows {o4['rows']}")
+    log(f"[sharded] {tag} rank {r} ({out['backend']}, world_size {world}): "
+        f"Config 4 approximate step (K={k} per row, N={C4_N} split "
+        f"{C4_N // world} per rank, fp32): selection ({TRAIN_B}, {k}) the "
+        f"same rows as one process's ({len(tied)} rows in another order "
+        f"within a tie); "
+        f"loss {o4['loss']:.6f} vs one process "
+        f"{c4['loss']:.6f} (rel {rel4:.3e}, rtol {STEP_LOSS_RTOL}); worst "
+        f"gradient {worst4[0]} at {worst4[1]:.3e} of its largest element; "
+        f"pairwise_lse launches {o4['launches']}")
+    log(f"[sharded] {tag} rank {r}: batch forward {o4['rows']['forward']} "
+        f"rows, re-encode {o4['rows']['reencode']} rows; a profiled step: "
+        f"device {o4['device_ms']:.3f} ms (copies {o4['copy_ms']:.3f} ms), "
+        f"wall {o4['wall_ms']:.3f} ms ({note})")
+
+
 def sharded_phase(pl, snap_dir):
     """Part B on the card: SHARD_W gloo ranks sharing the card (torchrun
     child processes of this script), data-parallel, against one process
@@ -2099,8 +2205,6 @@ def sharded_phase(pl, snap_dir):
     step at full width, the bank split 100 000 / 100 000, the cache of one
     process's refresh; (c) each rank's rows and device ms against one
     process's."""
-    import socket
-
     from exemplar_vae_tpu_torch.models import create_model
     from exemplar_vae_tpu_torch.train.loss import Bank
     from exemplar_vae_tpu_torch.train.steps import (init_train_state,
@@ -2132,24 +2236,7 @@ def sharded_phase(pl, snap_dir):
     c4 = _sharded_c4_reference(snap_dir, work)
     torch.cuda.empty_cache()
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         str(SHARD_W), "--master_addr", "127.0.0.1", "--master_port",
-         str(port), str(ROOT / "chip_smoke.py"), "--sharded-rank", str(work)],
-        cwd=ROOT, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
-    wall_s = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
-        log(f"[sharded] | {line}")
-    if proc.returncode:
-        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
-    check(proc.returncode == 0, f"the {SHARD_W} ranks exited "
-          f"{proc.returncode}")
-    outs = [torch.load(work / f"rank{r}.pt", weights_only=True)
-            for r in range(SHARD_W)]
+    outs, wall_s = _torchrun(work, SHARD_W, "gloo")
     launches = {}
     b_r, k = TRAIN_B // SHARD_W, c4["selection"].shape[1]
     for r, out in enumerate(outs):
@@ -2175,42 +2262,10 @@ def sharded_phase(pl, snap_dir):
             f"gathered), N={N_BANK // SHARD_W}, LOO; step "
             f"{out['step_ms']:.3f} ms (the process's first), a second "
             f"{out['step2_ms']:.3f} ms")
-        # (b): the selections first, then loss and gradients
-        o4 = out["c4"]
-        sel, want = o4["selection"], c4["selection"]
-        if not torch.equal(sel, want):
-            bad = (sel != want).any(1).nonzero().flatten()[:5].tolist()
-            for b in bad:
-                d = lambda cols: ((c4["q"][b][None] - c4["cache"][  # noqa
-                    cols.to(dev)]) ** 2).sum(-1).tolist()
-                log(f"[sharded] (b) rank {r} row {b}: one process's rows "
-                    f"{want[b].tolist()} at distances {d(want[b])}; the "
-                    f"rank's {sel[b].tolist()} at {d(sel[b])}")
-        check(torch.equal(sel, want), f"rank {r}'s Config 4 kNN selection "
-              f"differs from one process's (a near tie?)")
-        check(o4["launches"] == 0, f"rank {r}'s approximate step launched "
-              f"the kernel {o4['launches']} times")
-        rel4 = abs(o4["loss"] - c4["loss"]) / abs(c4["loss"])
-        check(rel4 <= STEP_LOSS_RTOL, f"rank {r} Config 4 loss {o4['loss']} "
-              f"vs one process {c4['loss']}")
-        worst4 = _check_grads(f"rank {r} Config 4", o4["grads"], c4["grads"],
-                              dev)
-        # (c)
-        check(o4["rows"] == {"forward": [b_r], "reencode": [b_r * k]},
-              f"rank {r}'s Config 4 step saw rows {o4['rows']}")
-        launches[f"sharded_config4_rank{r}"] = o4["launches"]
-        log(f"[sharded] (b) rank {r}: Config 4 approximate step (K={k} per "
-            f"row, N={C4_N} split {C4_N // SHARD_W} per rank, fp32): "
-            f"selection ({TRAIN_B}, {k}) equal to one process's; loss "
-            f"{o4['loss']:.6f} vs one process {c4['loss']:.6f} (rel "
-            f"{rel4:.3e}, rtol {STEP_LOSS_RTOL}); worst gradient "
-            f"{worst4[0]} at {worst4[1]:.3e} of its largest element; "
-            f"pairwise_lse launches {o4['launches']}")
-        log(f"[sharded] (c) rank {r}: batch forward {o4['rows']['forward']} "
-            f"rows, re-encode {o4['rows']['reencode']} rows; a profiled "
-            f"step: device {o4['device_ms']:.3f} ms (copies "
-            f"{o4['copy_ms']:.3f} ms), wall {o4['wall_ms']:.3f} ms (two "
-            f"ranks share the card: no sharding speed)")
+        # (b) and (c)
+        _check_c4_rank("(b)", r, out, c4, dev, "two ranks share the card: "
+                       "no sharding speed")
+        launches[f"sharded_config4_rank{r}"] = out["c4"]["launches"]
     check(c4["rows"] == {"forward": [TRAIN_B], "reencode": [TRAIN_B * k]},
           f"one process's Config 4 step saw rows {c4['rows']}")
     log(f"[sharded] (c) one process: batch forward {c4['rows']['forward']} "
@@ -2223,7 +2278,55 @@ def sharded_phase(pl, snap_dir):
     log(f"[sharded] Config 1 and Config 4 steps at full width on {SHARD_W} "
         f"gloo ranks sharing the card, data-parallel ({TRAIN_B // SHARD_W} "
         f"rows each): torchrun wall {wall_s:.2f} s")
+
+    # (d) NCCL across the host's cards, one rank a card
+    cards = torch.cuda.device_count()
+    if cards < NCCL_W:
+        log(f"[sharded] (d) skipped: NCCL across {NCCL_W} cards needs "
+            f"{NCCL_W} cards; this host has {cards}")
+        return launches
+    work4 = snap_dir / "sharded_nccl"
+    work4.mkdir()
+    shutil.copy(work / "c4_inputs.pt", work4 / "c4_inputs.pt")
+    outs, wall_s = _torchrun(work4, NCCL_W, "nccl")
+    for r, out in enumerate(outs):
+        check(out["banned"] == [], f"rank {r} imported {out['banned']}")
+        check(out["backend"] == "nccl" and out["world_size"] == NCCL_W,
+              f"rank {r}: backend {out['backend']}, world size "
+              f"{out['world_size']}")
+        _check_c4_rank("(d)", r, out, c4, dev, "one card a rank",
+                       ties=True)
+        launches[f"sharded_nccl_config4_rank{r}"] = out["c4"]["launches"]
+    log(f"[sharded] (d) Config 4's step at full width on {NCCL_W} NCCL "
+        f"ranks, one a card, data-parallel ({TRAIN_B // NCCL_W} rows each): "
+        f"torchrun wall {wall_s:.2f} s")
     return launches
+
+
+def _torchrun(work, world, backend):
+    """([rank<r>.pt of each rank], wall s): ``world`` ranks of this script
+    (``--sharded-rank work backend``) under torchrun."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(world), "--master_addr", "127.0.0.1", "--master_port",
+         str(port), str(ROOT / "chip_smoke.py"), "--sharded-rank", str(work),
+         backend], cwd=ROOT, capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[sharded] | {line}")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"the {world} {backend} ranks exited "
+          f"{proc.returncode}")
+    return [torch.load(work / f"rank{r}.pt", weights_only=True)
+            for r in range(world)], wall_s
 
 
 def banned_modules(*more):
@@ -2625,7 +2728,7 @@ def main():
               "False)", file=sys.stderr)
         sys.exit(2)
     if sys.argv[1:2] == ["--sharded-rank"]:
-        sharded_child(Path(sys.argv[2]))
+        sharded_child(Path(sys.argv[2]), *sys.argv[3:4])
         return
     if sys.argv[1:2] == ["--serve-bundle"]:
         serve_bundle_child(Path(sys.argv[2]))

@@ -25,11 +25,19 @@ card). Each rank's card is ``cuda:LOCAL_RANK``.
 Every gather is written as "each rank writes its block into a zero buffer,
 then all_reduce SUM": exact (x + 0 = x, inf + 0 = inf), and all_reduce is
 the one collective that NCCL, gloo on the CPU and gloo on CUDA tensors all
-take.
+take. Every all_reduce of the mesh goes through ``all_reduce``, which
+counts the bytes this rank puts through it.
+
+Under a profiler the collectives are ranges of their own
+(train/profiling.py's ``span``): ``evae.mesh.grads`` (Mesh.average_grads),
+``evae.mesh.gather`` (Mesh.all_gather_rows and the kNN prior's row gather
+and candidate merge, parallel/sharded_knn.py), ``evae.mesh.metrics`` (the
+epoch's metric sums, train/steps.py).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 from dataclasses import dataclass
@@ -38,6 +46,29 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
+
+
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place; returns ``t``.
+
+    ``all_reduce.bytes`` counts the bytes of every buffer this rank has put
+    through it. While a profiler runs, ``all_reduce.kept`` also keeps each
+    call's count before it and its buffer's bytes, so that a reader can take
+    the bytes and the calls of a profiled stretch."""
+    nbytes = t.numel() * t.element_size()
+    if profiler_active():
+        all_reduce.kept.append((all_reduce.bytes, nbytes))
+    all_reduce.bytes += nbytes
+    dist.all_reduce(t, op=op)
+    return t
+
+
+all_reduce.bytes = 0
+# (bytes before the call, its buffer's bytes) of the latest calls made under
+# a profiler, newest last
+all_reduce.kept = collections.deque(maxlen=4096)
 
 
 def pad_to_shards(arr, n_shards: int, pad_value=0):
@@ -126,9 +157,8 @@ class Mesh:
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In-place all_reduce of ``t`` (no gradient); returns ``t``."""
-        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM)
-        return t
+        return all_reduce(t, dist.ReduceOp.MAX if op == "max"
+                          else dist.ReduceOp.SUM)
 
     def all_gather_rows(self, shard: torch.Tensor,
                         total: Optional[int] = None) -> torch.Tensor:
@@ -143,10 +173,11 @@ class Mesh:
             raise ValueError(f"rank {self.rank} holds {shard.shape[0]} rows, "
                              f"not its {hi - lo} of {total}")
         dt = torch.uint8 if shard.dtype == torch.bool else shard.dtype
-        out = torch.zeros((total,) + tuple(shard.shape[1:]), dtype=dt,
-                          device=shard.device)
-        out[lo:hi] = shard
-        self.all_reduce(out)
+        with span("evae.mesh.gather"):
+            out = torch.zeros((total,) + tuple(shard.shape[1:]), dtype=dt,
+                              device=shard.device)
+            out[lo:hi] = shard
+            self.all_reduce(out)
         return out.bool() if shard.dtype == torch.bool else out
 
     def all_gather_rows_grad(self, rows: torch.Tensor,
@@ -177,13 +208,14 @@ class Mesh:
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        self.all_reduce(flat)
-        flat.div_(self.size)
-        start = 0
-        for g in grads:
-            g.copy_(flat[start:start + g.numel()].view_as(g))
-            start += g.numel()
+        with span("evae.mesh.grads"):
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self.all_reduce(flat)
+            flat.div_(self.size)
+            start = 0
+            for g in grads:
+                g.copy_(flat[start:start + g.numel()].view_as(g))
+                start += g.numel()
 
     def barrier(self):
         if self.device.type == "cuda" and dist.get_backend() == "nccl":
@@ -221,15 +253,11 @@ class AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM)
-        return y
+        return all_reduce(x.clone())
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
-        return g
+        return all_reduce(g.clone())
 
 
 class AllGatherRows(torch.autograd.Function):
@@ -246,8 +274,7 @@ class AllGatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        g = all_reduce(g.contiguous().clone())
         lo, hi = ctx.rows
         return g[lo:hi], None, None
 

@@ -18,7 +18,9 @@ Four pieces:
 3. the row gather: each rank takes the selected rows it holds, zeros
    elsewhere, and an all_reduce SUM assembles them (each row lives on one
    rank, so the sum is the gather). uint8 images and int32 indices travel
-   in their own types, exact at any bank size;
+   in their own types, exact at any bank size. The gathers and the
+   candidate merge are ``evae.mesh.gather`` ranges under a profiler, inside
+   the prior's ``evae.prior.knn`` and ``evae.prior.reencode``;
 4. the re-encode with gradients. Per-row support: each rank keeps its own
    rows' B_r * K neighbours, re-encodes only those and scores its own rows;
    a row's mixture uses only its own K neighbours, so no differentiable
@@ -39,6 +41,7 @@ from exemplar_vae_tpu_torch.config import Config
 from exemplar_vae_tpu_torch.ops.knn import pairwise_sq_dist, smallest_k
 from exemplar_vae_tpu_torch.parallel.mesh import Mesh
 from exemplar_vae_tpu_torch.train.loss import approx_log_p_top
+from exemplar_vae_tpu_torch.train.profiling import span
 
 
 def sharded_knn_select(q_means, cache_shard, valid_shard, k: int,
@@ -56,12 +59,13 @@ def sharded_knn_select(q_means, cache_shard, valid_shard, k: int,
     if kk < k:                  # every rank gives k candidates
         dist = torch.cat([dist, dist.new_full((b, k - kk), torch.inf)], 1)
         rows = torch.cat([rows, rows.new_zeros((b, k - kk))], 1)
-    dist_all = mesh.all_gather_rows(dist[None])           # (W, B, k)
-    rows_all = mesh.all_gather_rows(rows[None])
-    dist_all = dist_all.permute(1, 0, 2).reshape(b, -1)   # rank-major
-    rows_all = rows_all.permute(1, 0, 2).reshape(b, -1)
-    _, pos = smallest_k(dist_all.contiguous(), k)
-    return torch.gather(rows_all, 1, pos)
+    with span("evae.mesh.gather"):
+        dist_all = mesh.all_gather_rows(dist[None])       # (W, B, k)
+        rows_all = mesh.all_gather_rows(rows[None])
+        dist_all = dist_all.permute(1, 0, 2).reshape(b, -1)   # rank-major
+        rows_all = rows_all.permute(1, 0, 2).reshape(b, -1)
+        _, pos = smallest_k(dist_all.contiguous(), k)
+        return torch.gather(rows_all, 1, pos)
 
 
 def sharded_row_gather(arr_shard, rows, mesh: Mesh):
@@ -69,12 +73,13 @@ def sharded_row_gather(arr_shard, rows, mesh: Mesh):
     shard this rank holds, in the shard's dtype: a masked local gather,
     then all_reduce SUM."""
     n_loc = arr_shard.shape[0]
-    local = rows.reshape(-1) - mesh.rank * n_loc
-    mine = (local >= 0) & (local < n_loc)
-    flat = arr_shard.reshape(n_loc, -1).index_select(
-        0, local.clamp(0, n_loc - 1))
-    flat = torch.where(mine[:, None], flat, torch.zeros_like(flat))
-    mesh.all_reduce(flat)
+    with span("evae.mesh.gather"):
+        local = rows.reshape(-1) - mesh.rank * n_loc
+        mine = (local >= 0) & (local < n_loc)
+        flat = arr_shard.reshape(n_loc, -1).index_select(
+            0, local.clamp(0, n_loc - 1))
+        flat = torch.where(mine[:, None], flat, torch.zeros_like(flat))
+        mesh.all_reduce(flat)
     return flat.reshape(tuple(rows.shape) + tuple(arr_shard.shape[1:]))
 
 

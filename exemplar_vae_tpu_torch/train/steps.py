@@ -19,7 +19,8 @@ exemplar_vae_tpu/train/steps.py).
   and ``evae.step.optimizer``; the epoch loop's row gather before it is an
   ``evae.step.inputs`` of its own, and the epoch's bank and the cache
   refresh are ``evae.epoch.bank`` and ``evae.cache_refresh``
-  (train/profiling.py's ``span``: nothing without a profiler).
+  (train/profiling.py's ``span``: nothing without a profiler); on the data
+  mesh the collectives are ``evae.mesh.*`` ranges (parallel/mesh.py).
 
 The JAX package's ``epoch_splits`` and ``gather_in_scan`` work around XLA
 and TPU limits and have no counterpart here; the loop uses no CUDA graph.
@@ -220,8 +221,9 @@ def make_epoch_fn(cfg: Config, mesh=None):
             return state, {k: torch.stack([a[k] for a in auxs]).mean()
                            for k in auxs[0]}
         keys = list(auxs[0])
-        sums = mesh.all_reduce(torch.stack(
-            [torch.stack([a[k] for a in auxs]).sum() for k in keys]))
+        with span("evae.mesh.metrics"):
+            sums = mesh.all_reduce(torch.stack(
+                [torch.stack([a[k] for a in auxs]).sum() for k in keys]))
         return state, dict(zip(keys, (sums / steps).unbind()))
 
     return epoch_fn

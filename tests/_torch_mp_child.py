@@ -18,7 +18,9 @@ Scenarios:
   dp         the data-parallel exact prior (prior_case), one train step of
              each case (step_case) and epochs with their all_reduce counts
              (epoch_case);
-  dp3        one train step of each case, on 3 ranks.
+  dp3        one train step of each case, on 3 ranks;
+  mesh_spans one epoch of one step of the approximate prior, without and
+             with a profiler (mesh_spans_case).
 
 step_case and epoch_case run on one process too (mesh None): the tests
 call them for their references; block_epoch_fn is one process's epoch
@@ -26,6 +28,7 @@ that sums each batch in the ranks' row blocks, the reference that parts
 the mesh's summation order from the rest of it.
 """
 
+import contextlib
 import functools
 import os
 import sys
@@ -295,6 +298,40 @@ def _data_parallel(inp, mesh):
     return out
 
 
+def mesh_spans_case(case, mesh):
+    """One epoch of one step of ``case`` on the mesh from its params, first
+    without a profiler and then under one: for each, the bytes that the
+    port's all_reduce counted, the calls it kept (the profiler's only), the
+    ranges of the profiler's trace by name and the params after it; and
+    the number of gradient elements the step averaged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from exemplar_vae_tpu_torch.parallel.mesh import all_reduce
+    out = {}
+    for profiled in (False, True):
+        cfg, model, _ = _case_model(case)
+        g = torch.Generator().manual_seed(case["seed"])
+        epoch_fn = make_epoch_fn(cfg, mesh)
+        all_reduce.kept.clear()
+        before = all_reduce.bytes
+        with (profile(activities=[ProfilerActivity.CPU]) if profiled
+              else contextlib.nullcontext()) as prof:
+            epoch_fn(init_train_state(model, cfg), case["train_x"],
+                     case["train_idx"], case["perm"][:1],
+                     _case_bank(case, mesh), case["beta"], generator=g)
+        ranges = {}
+        for e in (prof.events() if profiled else ()):
+            if e.name.startswith("evae."):
+                ranges[e.name] = ranges.get(e.name, 0) + 1
+        out[profiled] = {
+            "bytes": all_reduce.bytes - before, "kept": list(all_reduce.kept),
+            "ranges": ranges,
+            "params": {k: v.clone() for k, v in model.state_dict().items()}}
+        out["grad_numel"] = sum(p.grad.numel() for p in model.parameters()
+                                if p.grad is not None)
+    return out
+
+
 def record_step_grads(model, opt):
     """The gradients of each of ``opt``'s steps, by parameter name (a list
     that grows as the steps run)."""
@@ -355,6 +392,8 @@ def main():
             out = _ops(inp, mesh)
         elif scenario in ("dp", "dp3"):
             out = _data_parallel(inp, mesh)
+        elif scenario == "mesh_spans":
+            out = mesh_spans_case(inp["case"], mesh)
         else:
             out = _experiment(inp, mesh, scenario)
         out["jax_loaded"] = [m for m in sys.modules
