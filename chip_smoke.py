@@ -99,7 +99,9 @@ Phases; any failure exits non-zero before the result lines:
    busy and idle shares, launches per step, device time by group, host
    synchronizations of a 3-step call, and the B*K re-encode alone; (d) the
    validation ELBO over 10 000 images, timed, one kernel launch per batch;
-   (e) one IWAE request of 100 points at S = 5000, MB = 500 against the
+   (e) a warm-up, then one timed 200-step epoch call of an fp32 copy of the
+   model (NCHW-contiguous convs): ms/step, images/s; then one IWAE request
+   of 100 points at S = 5000, MB = 500 against the
    50 000-row eval bank at fp32, through the kernel (one launch per round)
    and through the scan on the same noise, within rtol 1e-5, its time and
    peak memory, and its device time by group under the profiler; (f) the
@@ -107,7 +109,11 @@ Phases; any failure exits non-zero before the result lines:
    exact kernel launch count computed from its config. The gated epilogue's
    launches, counted per path: 4 in (e)'s fp32 eval-bank encode (one
    chunk), 3 a round + 4 + 4 in (e)'s IWAE request, none in the bf16 cache
-   refresh, training, validation and CLI epoch;
+   refresh, training, validation and CLI epoch, nor in (e)'s fp32 training.
+   The gated convs that carry a gradient over NCHW-contiguous input
+   (``gated_conv.grad_nchw``), counted per path: 15 a step of (e)'s fp32
+   training (4 + 4 of q(z2|x) over the batch and its B*K neighbours, 4 of
+   q(z1|x,z2), 3 of the decoder), none on every other path;
 9. [pixel], the PixelHVAE at the JAX package's default width (hidden 300,
    z1 = z2 = 40, PixelCNN of a 5x5 'A' and four 3x3 'B' masked convs of 64
    features) on the 50 000-image synthetic binarized stand-in, the exact
@@ -163,14 +169,20 @@ Phases; any failure exits non-zero before the result lines:
    peak memory, no kernel launch; (c) a 10-step call under torch.profiler:
    busy and idle shares, launches per step, device time by group, host
    synchronizations of a 3-step call; (d) the validation ELBO, one launch
-   per batch at B = 100, 100, 56 over N = 200 000; (e) one fp32 IWAE
+   per batch at B = 100, 100, 56 over N = 200 000; (e) a 3-step epoch
+   call of an fp32 copy of the model (NCHW-contiguous convs), finite loss;
+   (f) one fp32 IWAE
    request at S = 5000, MB = 500, chunked by the autotune into one chunk of
    10 points (B = 5000 rows a round, one launch per round), through the
    kernel and through the scan on the same noise within rtol 1e-5, its
    time, peak memory and device time by group. The gated epilogue's
-   launches, counted per path: 38 in (e)'s request (3 decoder layers a
-   round, 4 + 4 encoder layers once), 4 a chunk of (e)'s fp32 eval-bank
-   encode, none in the bf16 cache refresh, training and validation;
+   launches, counted per path: 38 in (f)'s request (3 decoder layers a
+   round, 4 + 4 encoder layers once), 4 a chunk of (f)'s fp32 eval-bank
+   encode, none in the bf16 cache refresh, training, validation and (e);
+   the gated convs that carry a gradient over NCHW-contiguous input, 15 a
+   step of (e) (4 + 4 of q(z2|x) over the batch and its B*K neighbours,
+   4 of q(z1|x,z2), 3 of the decoder), none on any other path (the bf16
+   training keeps its convs channels-last);
 12. [sharded], data-parallel training on the mesh: torchrun starts
    SHARD_W = 2 child processes of this script (``--sharded-rank``), gloo
    ranks sharing the card, each training on TRAIN_B / SHARD_W = 50 rows of
@@ -233,6 +245,7 @@ N_BANK, D = 50_000, 40
 # images and to one IWAE request of 10 points (the IWAE chunk autotune's
 # 10 points per chunk at 64x64x3 and MB = 500: B = 5000 rows per round)
 C4_N, C4_VAL, C4_T, C4_CHUNK = 200_000, 256, 10, 4096
+C4_FP32_STEPS = 3       # [config4] (e): the fp32 training call's steps
 # the sharded phase: ranks sharing the card, each holding N_BANK / SHARD_W
 # of Config 1's bank (C4_N / SHARD_W of Config 4's) and TRAIN_B / SHARD_W
 # rows of every batch; Config 4's images and config as [config4] left them
@@ -1077,16 +1090,30 @@ def check_gate_counts(gate, *, eval_bank, iwae):
     log(f"[gate-counts] gated_epilogue launches per path: {gate}")
 
 
+def check_grad_nchw(nchw, *, train_fp32=0):
+    """The gated convs that carried a gradient over NCHW-contiguous input
+    per path of a ConvHVAE phase, read from ``gated_conv.grad_nchw``:
+    ``train_fp32`` on the fp32 training path (15 a step), none on a bf16 or
+    no-gradient path."""
+    for path, n in nchw.items():
+        want = train_fp32 if path.endswith("_train_fp32") else 0
+        check(n == want, f"{path} counted {n} gated convs with a gradient "
+              f"over NCHW input, not {want}")
+    log(f"[grad-nchw] gated_conv.grad_nchw per path: {nchw}")
+
+
 def config3_phase(pl, snap_dir):
     """BASELINE Config 3 (docstring item 8): the pairwise_lse launches per
     path, and the gated epilogue's (gate_counts)."""
     from exemplar_vae_tpu_torch.config import (Config, config_from_args,
                                                reference_arg_parser)
     from exemplar_vae_tpu_torch.main import main as cli_main
-    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.models import create_model, layers
     from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
     from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
                                                          make_iwae_fn)
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_epoch_fn)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
 
     data_dir = snap_dir / "no_data"        # no IDX files: the gray stand-in
@@ -1118,11 +1145,12 @@ def config3_phase(pl, snap_dir):
     refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
                                         generator=exp.gen)
     torch.cuda.reset_peak_memory_stats()
-    ge.gated_epilogue.launches = 0
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
     refresh_ms = cuda_ms(refresh, 3, warmup=1)
     refresh_gb = torch.cuda.max_memory_allocated() / 1e9
     exp.bank = exp.bank._replace(cache_means=refresh())
     gate = {"config3_cache_refresh": ge.gated_epilogue.launches}
+    nchw = {"config3_cache_refresh": layers.gated_conv.grad_nchw}
     check(bool(torch.isfinite(exp.bank.cache_means).all()),
           "non-finite cache means")
 
@@ -1136,12 +1164,14 @@ def config3_phase(pl, snap_dir):
     torch.cuda.reset_peak_memory_stats()
     # ---- the train part of the path: counts 0 just before, read after ----
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     exp.state, metrics = run(perm)
     loss = float(metrics["loss"])           # host read: ends the timed call
     dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
     gate["config3_train"] = ge.gated_epilogue.launches
+    nchw["config3_train"] = layers.gated_conv.grad_nchw
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"Config 3 training loss {loss}")
@@ -1183,11 +1213,13 @@ def config3_phase(pl, snap_dir):
 
     # (d) the validation ELBO (eval bank encode + 100 batches)
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     val = exp.validate()
     val_s = time.perf_counter() - t0
     val_launches = pl.pairwise_lse.launches
     gate["config3_validation"] = ge.gated_epilogue.launches
+    nchw["config3_validation"] = layers.gated_conv.grad_nchw
     want_val = -(-C3_VAL // cfg.test_batch_size)
     check(all(math.isfinite(v) for v in val), f"Config 3 validation {val}")
     check(val_launches == want_val, f"validation launched the kernel "
@@ -1196,14 +1228,40 @@ def config3_phase(pl, snap_dir):
         f"{val_s:.3f} s (host clock, eval bank encode included); loss "
         f"{val[0]:.4f}; pairwise_lse launches {val_launches}")
 
-    # (e) one IWAE request at fp32, through the kernel and the scan
+    # (e) fp32 training of a copy (NCHW-contiguous convs), then one
+    # IWAE request at fp32, through the kernel and the scan
     c32 = exp.cfg.replace(compute_dtype="float32")
     m32 = create_model(c32, device="cuda")
     m32.load_state_dict(exp.model.state_dict())
+    epoch32 = make_epoch_fn(c32)
+    run32 = lambda state, perm: epoch32(  # noqa: E731
+        state, exp.train_x, exp.train_idx, perm, exp.bank, 1.0,
+        generator=exp.gen)
+    t32 = create_model(c32, device="cuda")
+    t32.load_state_dict(exp.model.state_dict())
+    state32, _ = run32(init_train_state(t32, c32),
+                       exp.epoch_perm(WARM_STEPS, TRAIN_B))
+    perm = exp.epoch_perm(TRAIN_STEPS, TRAIN_B)
+    torch.cuda.synchronize()
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
+    t0 = time.perf_counter()
+    state32, metrics = run32(state32, perm)
+    loss32 = float(metrics["loss"])         # host read: ends the timed call
+    dt32 = time.perf_counter() - t0
+    gate["config3_train_fp32"] = ge.gated_epilogue.launches
+    nchw["config3_train_fp32"] = layers.gated_conv.grad_nchw
+    check(math.isfinite(loss32), f"Config 3 fp32 training loss {loss32}")
+    log(f"[config3] fp32 {TRAIN_STEPS}-step epoch call (NCHW-contiguous "
+        f"convs): {dt32 * 1e3:.3f} ms = {dt32 / TRAIN_STEPS * 1e3:.4f} "
+        f"ms/step, {TRAIN_STEPS * TRAIN_B / dt32:.1f} images/s; loss "
+        f"{loss32:.4f}; gated_conv.grad_nchw "
+        f"{nchw['config3_train_fp32']} (15 a step)")
+    del state32, t32, run32, epoch32
     m32.eval()
-    ge.gated_epilogue.launches = 0
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
     eb = make_eval_bank_fn(m32, c32)(exp.bank)
     gate["config3_eval_bank"] = ge.gated_epilogue.launches
+    nchw["config3_eval_bank"] = layers.gated_conv.grad_nchw
     rounds, r = -(-c32.S // c32.MB), c32.MB
     g = torch.Generator("cuda").manual_seed(7)
     eps = (torch.randn((rounds, C3_T * r, D), generator=g, device="cuda"),
@@ -1214,11 +1272,13 @@ def config3_phase(pl, snap_dir):
     torch.cuda.reset_peak_memory_stats()
     # ---- the IWAE part of the path: counts 0 just before, read after ----
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     nll_k = iwae_k(exp.test_x, eb, rounds, r, eps=eps).cpu()
     iwae_ms = (time.perf_counter() - t0) * 1e3
     iwae_launches = pl.pairwise_lse.launches
     gate["config3_iwae"] = ge.gated_epilogue.launches
+    nchw["config3_iwae"] = layers.gated_conv.grad_nchw
     # ---- end ----
     iwae_gb = torch.cuda.max_memory_allocated() / 1e9
     nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False)).chunk_nll(
@@ -1254,6 +1314,7 @@ def config3_phase(pl, snap_dir):
             "bfloat16", "--snapshot_dir", str(cli_dir)]
     out = io.StringIO()
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         results = cli_main(argv)
@@ -1261,6 +1322,7 @@ def config3_phase(pl, snap_dir):
     cli_s = time.perf_counter() - t0
     cli_launches = pl.pairwise_lse.launches
     gate["config3_cli_epoch"] = ge.gated_epilogue.launches
+    nchw["config3_cli_epoch"] = layers.gated_conv.grad_nchw
     for line in out.getvalue().splitlines():
         log(f"[config3-cli] | {line}")
     # the approximate train step launches none; one per validation batch
@@ -1292,6 +1354,7 @@ def config3_phase(pl, snap_dir):
     # fp32 only: the bf16 paths (refresh, training, validation, CLI) none
     check_gate_counts(gate, eval_bank=4 * _chunks(N_BANK, c32),
                       iwae=3 * rounds + 8)
+    check_grad_nchw(nchw, train_fp32=15 * TRAIN_STEPS)
     return ({"config3_train": train_launches,
              "config3_validation": val_launches, "config3_iwae": iwae_launches,
              "config3_cli_epoch": cli_launches}, gate)
@@ -1301,10 +1364,12 @@ def config4_phase(pl, snap_dir):
     """BASELINE Config 4 (docstring item 11): the pairwise_lse launches per
     path, and the gated epilogue's (gate_counts)."""
     from exemplar_vae_tpu_torch.config import Config
-    from exemplar_vae_tpu_torch.models import create_model
+    from exemplar_vae_tpu_torch.models import create_model, layers
     from exemplar_vae_tpu_torch.ops import gated_epilogue as ge
     from exemplar_vae_tpu_torch.train.evaluation import (make_eval_bank_fn,
                                                          make_iwae_fn)
+    from exemplar_vae_tpu_torch.train.steps import (init_train_state,
+                                                    make_epoch_fn)
     from exemplar_vae_tpu_torch.train.trainer import Experiment
 
     cfg = Config(dataset_name="synthetic_continuous",
@@ -1340,11 +1405,12 @@ def config4_phase(pl, snap_dir):
     refresh = lambda: exp.cache_refresh(exp.bank.images,  # noqa: E731
                                         generator=exp.gen)
     torch.cuda.reset_peak_memory_stats()
-    ge.gated_epilogue.launches = 0
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
     refresh_ms = cuda_ms(refresh, 2, warmup=1)
     refresh_gb = torch.cuda.max_memory_allocated() / 1e9
     exp.bank = exp.bank._replace(cache_means=refresh())
     gate = {"config4_cache_refresh": ge.gated_epilogue.launches}
+    nchw = {"config4_cache_refresh": layers.gated_conv.grad_nchw}
     check(bool(torch.isfinite(exp.bank.cache_means).all())
           and tuple(exp.bank.cache_means.shape) == (C4_N, D),
           "Config 4 cache means")
@@ -1359,12 +1425,14 @@ def config4_phase(pl, snap_dir):
     torch.cuda.reset_peak_memory_stats()
     # ---- the train part of the path: counts 0 just before, read after ----
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     exp.state, metrics = run(perm)
     loss = float(metrics["loss"])           # host read: ends the timed call
     dt = time.perf_counter() - t0
     train_launches = pl.pairwise_lse.launches
     gate["config4_train"] = ge.gated_epilogue.launches
+    nchw["config4_train"] = layers.gated_conv.grad_nchw
     # ---- end ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(math.isfinite(loss), f"Config 4 training loss {loss}")
@@ -1398,11 +1466,13 @@ def config4_phase(pl, snap_dir):
 
     # (d) the validation ELBO (eval bank encode + batches of 100, 100, 56)
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     val = exp.validate()
     val_s = time.perf_counter() - t0
     val_launches = pl.pairwise_lse.launches
     gate["config4_validation"] = ge.gated_epilogue.launches
+    nchw["config4_validation"] = layers.gated_conv.grad_nchw
     want_val = -(-C4_VAL // cfg.test_batch_size)
     check(all(math.isfinite(v) for v in val), f"Config 4 validation {val}")
     check(val_launches == want_val, f"validation launched the kernel "
@@ -1411,9 +1481,26 @@ def config4_phase(pl, snap_dir):
         f"of N={C4_N} encoded first): {val_s:.3f} s (host clock); loss "
         f"{val[0]:.4f}; pairwise_lse launches {val_launches}")
 
-    # (e) one IWAE request at fp32, through the kernel and the scan, chunked
-    # by the autotune (10 points: one chunk of 10 x MB = 5000 rows a round)
+    # (e) fp32 training of a copy (NCHW-contiguous convs), one short call
     c32 = exp.cfg.replace(compute_dtype="float32")
+    t32 = create_model(c32, device="cuda")
+    t32.load_state_dict(exp.model.state_dict())
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
+    _, metrics = make_epoch_fn(c32)(
+        init_train_state(t32, c32), exp.train_x, exp.train_idx,
+        exp.epoch_perm(C4_FP32_STEPS, TRAIN_B), exp.bank, 1.0,
+        generator=exp.gen)
+    loss32 = float(metrics["loss"])
+    gate["config4_train_fp32"] = ge.gated_epilogue.launches
+    nchw["config4_train_fp32"] = layers.gated_conv.grad_nchw
+    check(math.isfinite(loss32), f"Config 4 fp32 training loss {loss32}")
+    log(f"[config4] fp32 {C4_FP32_STEPS}-step epoch call (NCHW-contiguous "
+        f"convs): loss {loss32:.4f}; gated_conv.grad_nchw "
+        f"{nchw['config4_train_fp32']} (15 a step)")
+    del t32
+
+    # (f) one IWAE request at fp32, through the kernel and the scan, chunked
+    # by the autotune (10 points: one chunk of 10 x MB = 5000 rows a round)
     m32 = create_model(c32, device="cuda")
     m32.load_state_dict(exp.model.state_dict())
     m32.eval()
@@ -1423,9 +1510,10 @@ def config4_phase(pl, snap_dir):
     (snap_dir / C4_CFG_FILE).write_text(exp.cfg.to_json())
     del exp, run, prof
     torch.cuda.empty_cache()
-    ge.gated_epilogue.launches = 0
+    ge.gated_epilogue.launches = layers.gated_conv.grad_nchw = 0
     eb = make_eval_bank_fn(m32, c32)(bank)
     gate["config4_eval_bank"] = ge.gated_epilogue.launches
+    nchw["config4_eval_bank"] = layers.gated_conv.grad_nchw
     rounds, r = -(-c32.S // c32.MB), c32.MB
     g = torch.Generator("cuda").manual_seed(7)
     eps = [(torch.randn((rounds, C4_T * r, D), generator=g, device="cuda"),
@@ -1436,11 +1524,13 @@ def config4_phase(pl, snap_dir):
     torch.cuda.reset_peak_memory_stats()
     # ---- the IWAE part of the path: counts 0 just before, read after ----
     pl.pairwise_lse.launches = ge.gated_epilogue.launches = 0
+    layers.gated_conv.grad_nchw = 0
     t0 = time.perf_counter()
     mean_k, nll_k = iwae_k(test_x, eb, eps=eps)
     iwae_ms = (time.perf_counter() - t0) * 1e3
     iwae_launches = pl.pairwise_lse.launches
     gate["config4_iwae"] = ge.gated_epilogue.launches
+    nchw["config4_iwae"] = layers.gated_conv.grad_nchw
     # ---- end ----
     iwae_gb = torch.cuda.max_memory_allocated() / 1e9
     _, nll_s = make_iwae_fn(m32, c32.replace(use_pallas_prior=False))(
@@ -1450,6 +1540,7 @@ def config4_phase(pl, snap_dir):
           f"{iwae_launches} times, not {rounds} (one chunk of {C4_T})")
     check_gate_counts(gate, eval_bank=4 * _chunks(C4_N, c32),
                       iwae=3 * rounds + 8)
+    check_grad_nchw(nchw, train_fp32=15 * C4_FP32_STEPS)
     check(nll_k.shape == (C4_T,) and bool(np.isfinite(nll_k).all()),
           "Config 4 IWAE NLL not finite")
     check(bool((np.abs(nll_k - nll_s) <= NLL_RTOL * np.abs(nll_s)).all()),

@@ -8,11 +8,15 @@ cfg.conv_enc_spec / cfg.conv_dec_spec (config.parse_conv_spec); the default
 is enc GC(32,7,s1) GC(32,3,s2) GC(64,5,s1) GC(64,3,s2), dec GCT(64,3,s2)
 GCT(32,3,s2) GC(32,3,s1).
 
-Data is NHWC at the model's boundary, as in the JAX package; the convs run
-on the NCHW view of it (channels-last in memory; the gated convs copy it
-NCHW-contiguous when no gradient flows in fp32, ``models/layers.py``) and
-the dense heads read the conv features in NHWC flatten order. Requires H and W divisible by the
-encoder's total downsampling, which must equal the decoder's upsampling.
+Data is NHWC at the model's boundary, as in the JAX package. The convs run
+on NCHW tensors in the memory format of cuDNN's conv kernels for the
+compute dtype, chosen once at that boundary (``layers.nchw_for``, the
+PixelHVAE's rule too), on every route: NCHW-contiguous in fp32, so that the
+convs, their weight and input gradients and the gate's ``chunk`` halves
+transpose nothing; the channels-last view in bf16, whose tensor-core kernels
+are NHWC. The dense heads read the conv features in NHWC flatten order.
+Requires H and W divisible by the encoder's total downsampling, which must
+equal the decoder's upsampling.
 Submodules carry the flax names (``q_z2_conv_0``, ``p_x_deconv_2``).
 """
 
@@ -27,13 +31,14 @@ from exemplar_vae_tpu_torch.config import parse_conv_spec
 from exemplar_vae_tpu_torch.models.base import PriorMixin, likelihood_params
 from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.models.layers import (
-    Conv,
     Dense,
     GatedConv2d,
     GatedConvTranspose2d,
     GatedDense,
+    GemmConv,
     NonLinear,
     compute_dtype,
+    nchw_for,
     p_logvar_activation,
     q_logvar_activation_for,
 )
@@ -66,11 +71,6 @@ def _run(layers, h):
     for layer in layers:
         h = layer(h)
     return h
-
-
-def _nchw(x):
-    """NHWC -> the NCHW view (channels-last in memory)."""
-    return x.permute(0, 3, 1, 2)
 
 
 def _flat_nhwc(h):
@@ -123,32 +123,34 @@ class ConvHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
                                  dtype=dt, generator=g)
         self._p_x_deconv, c_dec = _build_stack(
             self, "p_x_deconv", cfg.conv_dec_spec, cfg.conv_proj_channels, dt, g)
-        self.p_x_mean_head = Conv(c_dec, c_in, dtype=dt, generator=g)
+        self.p_x_mean_head = GemmConv(c_dec, c_in, dtype=dt, generator=g)
         if cfg.input_type != "binary":
-            self.p_x_logvar_head = Conv(c_dec, c_in, dtype=dt, generator=g)
+            self.p_x_logvar_head = GemmConv(c_dec, c_in, dtype=dt,
+                                            generator=g)
         self._setup_prior(generator)
 
     # --- inference net ---
     def encode_top(self, x):
-        h = _flat_nhwc(_run(self._q_z2_conv, _nchw(x)))
+        h = _flat_nhwc(_run(self._q_z2_conv, nchw_for(x, self.cfg)))
         return (self.q_z2_mean_head(h).to(torch.float32),
                 self.q_z2_logvar_head(h).to(torch.float32))
 
     def q_z1_cache(self, x):
         """The x-only conv features of q(z1|x,z2): in the encode-once IWAE
         the whole q_z1 conv stack stays out of the importance-sample loop."""
-        return _flat_nhwc(_run(self._q_z1_conv, _nchw(x)))
+        return _flat_nhwc(_run(self._q_z1_conv, nchw_for(x, self.cfg)))
 
     # --- generative net ---
     def decode(self, z1, z2):
         h = self.p_x_project(torch.cat([self.p_x_z1(z1), self.p_x_z2(z2)],
                                        dim=-1))
         dh, dw = self._dec_hw
-        h = _run(self._p_x_deconv, _nchw(
-            h.reshape(h.shape[0], dh, dw, self.cfg.conv_proj_channels)))
+        h = _run(self._p_x_deconv, nchw_for(
+            h.reshape(h.shape[0], dh, dw, self.cfg.conv_proj_channels),
+            self.cfg))
         x_mean, x_logvar = likelihood_params(
             torch.sigmoid(self.p_x_mean_head(h)).to(torch.float32),
             lambda: p_logvar_activation(self.p_x_logvar_head(h)),
             self.cfg.input_type)
-        # NCHW -> NHWC (a view when the decoder ran channels-last)
+        # NCHW -> NHWC, a view (NHWC-contiguous in bf16)
         return x_mean.permute(0, 2, 3, 1), x_logvar.permute(0, 2, 3, 1)

@@ -10,9 +10,11 @@ explicitly, with no autocast. Init follows flax: He-normal kernels
 (truncated normal, fan-in = every axis but the last), LeCun-normal for a
 plain ``nn.Dense`` / ``nn.Conv``, zero biases.
 
-The convs take and return NCHW tensors; the models hand them NHWC data
-through ``permute(0, 3, 1, 2)``, a view in the channels-last memory format,
-and flatten in flax's NHWC order through ``permute(0, 2, 3, 1)``. Padding is
+The convs take and return NCHW tensors in the memory format they are given;
+the models hand them NHWC data in the format of cuDNN's kernels for the
+compute dtype (``channels_last``, ``nchw_for``: NCHW-contiguous in fp32,
+the channels-last view of ``permute(0, 3, 1, 2)`` in bf16) and flatten in
+flax's NHWC order through ``permute(0, 2, 3, 1)``. Padding is
 flax's SAME: for a conv, ``total = max((ceil(n/s)-1)*s + k - n, 0)`` split
 ``total//2`` before and the rest after (asymmetric when the total is odd);
 for a transposed conv, lax's fractionally-strided correlation (no kernel
@@ -34,13 +36,15 @@ route, which at Config 4's decoder shapes on an H100 (fp32, TF32 off) is
 the zero taps (16/9 of the multiply-adds for k 3, s 2).
 ``conv_transpose_same.subpixel`` counts the calls that take the second route.
 
-The gated convs on that no-gradient route, in fp32, run NCHW-contiguous (a
-channels-last view from the models is copied once, at a stack's first
-layer; cuDNN's fp32 fprop kernels are NCHW, so it transposes nothing) and
-without their bias: the conv's raw sum, for a transposed conv the sub-pixel
-conv's phase-major channels with no depth-to-space copy, goes to one pass
-of ``ops/gated_epilogue.py`` that adds the biases, moves the phases to space
+The gated convs on that no-gradient route, in fp32, take NCHW-contiguous
+input (``nchw_for``; they refuse any other) and run without their bias:
+the conv's raw sum, for a transposed conv the sub-pixel conv's phase-major
+channels with no depth-to-space copy, goes to one pass of
+``ops/gated_epilogue.py`` that adds the biases, moves the phases to space
 and gates. ``gated_epilogue.launches`` counts those calls.
+Every other call (a gradient to carry, or bf16) is ``gated_conv``: the conv
+with its bias, ``chunk``, sigmoid and product; ``gated_conv.grad_nchw``
+counts those that carry a gradient over an NCHW-contiguous input.
 """
 
 from __future__ import annotations
@@ -249,6 +253,50 @@ def conv_transpose_same(x, w_hwio, b, stride):
 conv_transpose_same.subpixel = 0
 
 
+def channels_last(cfg) -> bool:
+    """The conv stacks' memory format, that of cuDNN's conv kernels for the
+    compute dtype: channels-last in bf16, NCHW-contiguous in fp32."""
+    return compute_dtype(cfg) is not None
+
+
+def nchw_for(x, cfg):
+    """NHWC x -> NCHW in the conv stacks' memory format for ``cfg``: the
+    channels-last view, or NCHW-contiguous. When C is 1 a reshape: it gives
+    the channel stride H*W, where contiguous() leaves the view's stride of
+    1 (a size-1 dim's stride is free), which cuDNN reads as channels-last."""
+    n, h, w, c = x.shape
+    if channels_last(cfg):
+        return x.permute(0, 3, 1, 2)
+    if c == 1:
+        return x.reshape(n, 1, h, w)
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _nchw_contiguous(x) -> bool:
+    """NCHW-contiguous with NCHW strides: a C = 1 channels-last view is
+    contiguous too, but its channel stride of 1 reads as channels-last."""
+    return x.is_contiguous() and x.stride(1) == x.shape[2] * x.shape[3]
+
+
+def carries_grad(*tensors) -> bool:
+    """Grad mode on and one of ``tensors`` requiring grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def gated_conv(conv, x, w, b, stride):
+    """h * sigmoid(g) of ``conv(x, w, b, stride)``'s 2F channels, in the
+    memory format of x: the gated convs' route with a gradient to carry, and
+    in bf16. ``gated_conv.grad_nchw`` counts the calls that carry a
+    gradient over an NCHW-contiguous x."""
+    if carries_grad(x, w, b) and _nchw_contiguous(x):
+        gated_conv.grad_nchw += 1
+    h, g = torch.chunk(conv(x, w, b, stride), 2, dim=1)
+    return h * torch.sigmoid(g)
+
+
+gated_conv.grad_nchw = 0
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` with a 1x1 kernel (HWIO (1, 1, in, out)), LeCun
     init: the ConvHVAE's and PixelHVAE's likelihood heads."""
@@ -267,6 +315,48 @@ class Conv(nn.Module):
                          (1, 1))
 
 
+class _GemmForward(torch.autograd.Function):
+    """A 1x1 conv over NCHW-contiguous x with (out, in) weights w: forward
+    as one batched GEMM, (out, in) @ (B, in, H*W); backward the conv's own.
+    cuBLAS's input gradient at K = out is the slow half of a GEMM here (at
+    the ConvHVAE's Config 4 heads on an H100, 0.149 ms against cuDNN's
+    dgrad's 0.047)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        n, _, h, wd = x.shape
+        y = torch.bmm(w.expand(n, -1, -1), x.flatten(2))
+        return (y + b[:, None]).view(n, -1, h, wd)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            dy, x, w[:, :, None, None], [w.shape[0]], [1, 1], [0, 0],
+            [1, 1], False, [0, 0], 1, list(ctx.needs_input_grad))
+        return gx, None if gw is None else gw.view(w.shape), gb
+
+
+class GemmConv(Conv):
+    """``Conv`` whose forward, with a gradient to carry over NCHW-contiguous
+    fp32 input, is one batched GEMM (``_GemmForward``): the ConvHVAE's
+    likelihood heads, whose fp32 training takes NCHW input. The GEMM sums
+    each output's channels in one order on any number of CPU threads; the
+    CPU's NCHW 1x1 conv splits that sum across threads, and the saturated
+    logistic bins of the likelihood carry its last-bit differences into the
+    gradients. Otherwise the conv, so that the no-gradient route keeps its
+    bits. (The PixelHVAE keeps ``Conv``: its two routes are bitwise one.)"""
+
+    def forward(self, x):
+        if (x.dtype == torch.float32 and self.dtype is None
+                and _nchw_contiguous(x)
+                and carries_grad(x, self.kernel, self.bias)):
+            return _GemmForward.apply(x, self.kernel[0, 0].t().contiguous(),
+                                      self.bias)
+        return super().forward(x)
+
+
 class _GatedConvBase(nn.Module):
     """h * sigmoid(g) of one 2F-channel conv over separate value and gate
     params (HWIO kernels), no activation (the conv stacks use none).
@@ -276,8 +366,8 @@ class _GatedConvBase(nn.Module):
     without its bias (a transposed conv: its sub-pixel conv, no
     depth-to-space copy) and ``ops/gated_epilogue.py`` adds the biases, moves
     the phases to space and gates in one pass, in the unfused chain's order
-    (the same bits from the same conv output). Otherwise the conv with its
-    bias, ``chunk``, sigmoid and product."""
+    (the same bits from the same conv output). Otherwise ``gated_conv``:
+    the conv with its bias, ``chunk``, sigmoid and product."""
 
     def __init__(self, c_in: int, features: int, kernel_size, strides, *,
                  dtype=None, generator=None):
@@ -291,23 +381,19 @@ class _GatedConvBase(nn.Module):
         self.dtype = dtype
 
     def _fused_route(self, x, dt) -> bool:
-        return dt == torch.float32 and not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *self.parameters())))
+        return dt == torch.float32 and not carries_grad(x, *self.parameters())
 
     def forward(self, x):
         dt = self.dtype or self.h_kernel.dtype
         w = torch.cat([self.h_kernel.to(dt), self.g_kernel.to(dt)], dim=-1)
         if self._fused_route(x, dt):
-            # contiguous() leaves a C = 1 channels-last view's strides as they
-            # are (a size-1 dim's stride is free) and the convs read them as
-            # channels-last; the flat view gives it NCHW strides
-            x = x.to(dt).contiguous().flatten().view(x.shape)
+            if not _nchw_contiguous(x):
+                raise ValueError("the fused route takes NCHW-contiguous "
+                                 f"input, got strides {x.stride()}")
             y, phases = self._raw_conv(x, w)
             return gated_epilogue(y, self.h_bias, self.g_bias, phases)
         b = torch.cat([self.h_bias.to(dt), self.g_bias.to(dt)])
-        h, g = torch.chunk(self._conv(x.to(dt), w, b, self.strides), 2,
-                           dim=1)
-        return h * torch.sigmoid(g)
+        return gated_conv(self._conv, x.to(dt), w, b, self.strides)
 
 
 class GatedConv2d(_GatedConvBase):

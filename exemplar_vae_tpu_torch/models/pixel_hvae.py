@@ -57,7 +57,8 @@ from exemplar_vae_tpu_torch.models.base import (PriorMixin,
                                                 reparameterize)
 from exemplar_vae_tpu_torch.models.hvae import TwoLevelMLPCore
 from exemplar_vae_tpu_torch.models.layers import (Conv, Dense, MaskedConv2d,
-                                                  compute_dtype,
+                                                  carries_grad, channels_last,
+                                                  compute_dtype, nchw_for,
                                                   p_logvar_activation)
 from exemplar_vae_tpu_torch.ops.masked_epilogue import masked_epilogue
 from exemplar_vae_tpu_torch.train.profiling import profiler_active, span
@@ -89,11 +90,6 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
             self.p_x_logvar_head = Conv(pf, c_in, dtype=dt, generator=g)
         self._setup_prior(generator)
 
-    def _channels_last(self) -> bool:
-        """The stack's memory format, that of cuDNN's conv kernels for the
-        compute dtype: channels-last in bf16, NCHW in fp32."""
-        return compute_dtype(self.cfg) is not None
-
     def _ctx(self, z1, z2):
         """The context map (B, F, H, W) in the stack's memory format. In
         fp32 NCHW-contiguous, from ``ctx_proj``'s GEMM over its kernel's
@@ -101,7 +97,7 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
         (F, H, W) order."""
         (ih, iw), pf = self._hw, self.cfg.pixelcnn_features
         z = torch.cat([z1, z2], dim=-1)
-        if self._channels_last():
+        if channels_last(self.cfg):
             ctx = self.ctx_proj(z)
             return ctx.reshape(z.shape[0], ih, iw, pf).permute(0, 3, 1, 2)
         d = self.ctx_proj
@@ -115,10 +111,9 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
         """Whether the teacher-forced stack takes the fused epilogue: fp32
         (so NCHW), and no gradient to carry (grad mode off, or nothing of
         ``inputs`` and the params requiring grad)."""
-        if self._channels_last():
+        if channels_last(self.cfg):
             return False
-        return not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*inputs, *self.parameters())))
+        return not carries_grad(*inputs, *self.parameters())
 
     def _stack(self, x, ctx, valid=None):
         """Masked stack and heads over NCHW ``x``: (mean, logvar), NCHW.
@@ -136,13 +131,8 @@ class PixelHVAE(TwoLevelMLPCore, PriorMixin, nn.Module):
         """The stack and heads over NHWC ``x`` in the stack's memory format
         (in NCHW a reshape when C is 1) and the context map ``ctx``:
         (mean, logvar), NCHW; with ``fused`` through ``_stack_fused``."""
-        n, ih, iw, c = x.shape
-        if self._channels_last():
-            x = x.permute(0, 3, 1, 2)
-        else:
-            x = (x.reshape(n, 1, ih, iw) if c == 1 else
-                 x.permute(0, 3, 1, 2).contiguous())
-        return (self._stack_fused if fused else self._stack)(x, ctx)
+        return (self._stack_fused if fused else self._stack)(
+            nchw_for(x, self.cfg), ctx)
 
     def _stack_fused(self, x, ctx):
         """``_stack`` without a gradient, in fp32, over NCHW-contiguous x

@@ -189,7 +189,7 @@ def test_request_counts_38_and_train_step_none():
 def test_export_keeps_the_op_as_one_node_with_its_shape(cls, s):
     layer = cls(6, 5, (3, 3), (s, s),
                 generator=torch.Generator().manual_seed(0))
-    x = torch.randn((2, 6, 7, 7)).contiguous(memory_format=torch.channels_last)
+    x = torch.randn((2, 6, 7, 7))
     with torch.no_grad():
         program = torch.export.export(layer, (x,))
         want = layer(x)
